@@ -1,0 +1,55 @@
+"""pygpr_torch — the PyTorch and CUDA port of pygpr_tpu.
+
+A second package beside the JAX one, which stays the reference.  This
+first slice covers the exact-GP path: the NLML and its fast gradient,
+the L-BFGS fit, factorize and predict, on ``Sum((RBF(), WhiteNoise()))``
+and its parts.  On an NVIDIA H100 the train gram and the fused Cholesky
+plus triangular inverse run in hand-written CUDA kernels
+(``pygpr_torch/csrc``), built with ``nvcc`` at first use.
+
+Tensors run on their own device.  NumPy inputs go to ``device="cuda"``
+unless the caller passes ``device="cpu"``; without a GPU that raises.
+The namespace is flat, as the JAX package's is.
+"""
+
+from pygpr_torch.config import DEFAULT, Config, as_tensor
+from pygpr_torch.ops.kernels import (
+    RBF,
+    Kernel,
+    Sum,
+    WhiteNoise,
+    kernel_and_grad,
+    kernel_diag,
+    kernel_matrix,
+    sq_distance,
+    train_gram,
+)
+from pygpr_torch.ops.linalg import (
+    add_diag,
+    chol_and_tri_inverse,
+    cholesky_solve,
+    inv_from_chol,
+    safe_cholesky,
+    spd_solve,
+)
+from pygpr_torch.models.exact_gp import (
+    GPR,
+    ExactGP,
+    GPState,
+    factorize,
+    fit_predict,
+    precompute_tinv,
+    predict,
+)
+from pygpr_torch.models.likelihood import (
+    MLE,
+    Loss,
+    log_likelihood_batched,
+    nlml,
+    nlml_and_grad_analytic,
+    nlml_fast,
+    nlml_value_and_grad,
+)
+from pygpr_torch.models import priors
+from pygpr_torch.optimize.lbfgs import FitResult, fit_map, fit_mle, minimize_lbfgs
+from pygpr_torch import convert

@@ -1,0 +1,52 @@
+"""Carry state across from the JAX package as NumPy arrays.
+
+A posterior state or parameter vector of ``pygpr_tpu`` becomes the
+port's own through ``np.asarray`` of each field; nothing here imports
+the JAX package.  The packed parameter order is the same in both, e.g.
+``[σ, ℓ₁..ℓ_d, σₙ]`` for ``Sum((RBF(), WhiteNoise()))``, so the kernel
+expression is rebuilt from the port's classes by name
+(:func:`kernel_from_names`).
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from pygpr_torch.models.exact_gp import GPState
+from pygpr_torch.ops.kernels import RBF, Kernel, Sum, WhiteNoise
+
+_KERNELS = {"RBF": RBF, "WhiteNoise": WhiteNoise}
+
+
+def kernel_from_names(*names: str) -> Kernel:
+    """The port's kernel for the JAX kernel's class names: one name gives
+    that kernel, several their ``Sum`` in the order given."""
+    unknown = [n for n in names if n not in _KERNELS]
+    if unknown or not names:
+        raise ValueError(f"no port of kernel(s) {unknown or names}; the port has {sorted(_KERNELS)}")
+    parts = [_KERNELS[n]() for n in names]
+    return parts[0] if len(parts) == 1 else Sum(parts)
+
+
+def params_from_numpy(p, device, dtype=None) -> torch.Tensor:
+    """A packed parameter vector ``[nhp]`` (or ``[nc, nhp]``) as a tensor
+    on ``device``; dtype follows the array unless given."""
+    return torch.as_tensor(np.asarray(p), dtype=dtype, device=device)
+
+
+def state_from_numpy(arrays: Mapping[str, np.ndarray], device) -> GPState:
+    """A ``GPState`` from NumPy copies of the JAX ``GPState`` fields (x, y,
+    params, chol, weights, jitter, ok and, where present, tinv), for
+    example ``{k: np.asarray(v) for k, v in jax_state._asdict().items()}``."""
+    missing = [f for f in GPState._fields if f != "tinv" and f not in arrays]
+    if missing:
+        raise ValueError(f"state_from_numpy: missing fields {missing}")
+    fields = {
+        f: torch.tensor(np.asarray(arrays[f]), device=device)
+        for f in GPState._fields
+        if arrays.get(f) is not None
+    }
+    return GPState(**fields)

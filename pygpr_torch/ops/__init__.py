@@ -1,0 +1,1 @@
+"""Covariance kernels, linear algebra and the hand-written CUDA kernels."""

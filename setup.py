@@ -15,8 +15,14 @@ setup(
         "LML hyperparameter optimization, MCMC sampling, and the "
         "generalized robust Bayesian Committee Machine on JAX/XLA/Pallas"
     ),
-    packages=find_packages(include=["pygpr_tpu", "pygpr_tpu.*"]),
-    package_data={"pygpr_tpu.native": ["data_layer.cpp"]},
+    packages=find_packages(
+        include=["pygpr_tpu", "pygpr_tpu.*", "pygpr_torch", "pygpr_torch.*"]
+    ),
+    package_data={
+        "pygpr_tpu.native": ["data_layer.cpp"],
+        # the PyTorch/CUDA port builds its kernels from these at first use
+        "pygpr_torch": ["csrc/*.cu"],
+    },
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "optax"],
     extras_require={

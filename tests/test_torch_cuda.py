@@ -1,0 +1,92 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
+one.  The file imports no JAX, so it also runs where JAX is absent:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import pygpr_torch as gp
+from pygpr_torch.ops import chol_inverse, gram
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _data(n, d=3, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 2.0, size=(n, d)).astype(np.float32)
+    y = (np.sin(2.0 * x.sum(-1)) + 0.1 * rng.normal(size=n)).astype(np.float32)
+    p = np.ones(d + 2, np.float32)
+    p[-1] = 0.1
+    return x, y, p
+
+
+@pytest.mark.parametrize("n,d", [(1, 1), (63, 2), (1000, 3), (2048, 8)])
+def test_gram_kernel_matches_plain(n, d, dev):
+    x, _, p = _data(n, d)
+    xt, pt = torch.tensor(x, device=dev), torch.tensor(p, device=dev)
+    K = gram.rbf_noise_gram_cuda(pt, xt)
+    torch.cuda.synchronize()
+    assert (K - gram.rbf_noise_gram_plain(pt, xt)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("n", [256, 384, 1024])
+def test_chol_inverse_kernel_matches_plain_and_f64(n, dev):
+    x, _, p = _data(n)
+    K = gram.rbf_noise_gram_plain(torch.tensor(p, device=dev), torch.tensor(x, device=dev))
+    K0 = K.clone()
+    L, T = chol_inverse.cholesky_inverse_cuda(K)
+    torch.cuda.synchronize()
+    assert torch.equal(K, K0)  # the caller's K is not written
+    Lp, Tp = chol_inverse.cholesky_inverse_plain(K)
+    assert (L - Lp).abs().max() <= 1e-3 * Lp.abs().max()
+    assert (T - Tp).abs().max() <= 1e-3 * Tp.abs().max()
+    L64 = torch.linalg.cholesky(K.double())
+    assert torch.linalg.norm(L.double() - L64) <= 1e-3 * torch.linalg.norm(L64)
+    assert (T.double() @ L.double() - torch.eye(n, device=dev, dtype=torch.float64)).abs().max() <= 1e-3
+    assert (torch.triu(L, 1) == 0).all() and (torch.triu(T, 1) == 0).all()
+
+
+def test_chol_inverse_kernel_indefinite_gives_nan(dev):
+    L, _ = chol_inverse.cholesky_inverse_cuda(-torch.eye(256, device=dev))
+    assert not torch.isfinite(L).all()
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(8, 3, device=dev)
+    p = torch.ones(5, device=dev)
+    with pytest.raises(TypeError):
+        gram.rbf_noise_gram_cuda(p.double(), x.double())
+    with pytest.raises(ValueError):
+        gram.rbf_noise_gram_cuda(p[:4], x)
+    with pytest.raises(ValueError):
+        gram.rbf_noise_gram_cuda(p, torch.zeros(3, 8, device=dev).T)
+    with pytest.raises(TypeError):
+        chol_inverse.cholesky_inverse_cuda(torch.eye(256, device=dev, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        chol_inverse.cholesky_inverse_cuda(torch.eye(320, device=dev))
+    with pytest.raises(ValueError):
+        chol_inverse.cholesky_inverse_cuda(torch.eye(256, device=dev).T)
+
+
+def test_main_path_launches_both_kernels_and_matches_f64(dev):
+    x, y, p = _data(512)
+    cov = gp.Sum((gp.RBF(), gp.WhiteNoise()))
+    counters = (gram.rbf_noise_gram_cuda, chol_inverse.cholesky_inverse_cuda)
+    before = [c.launches for c in counters]
+    v, g = gp.nlml_value_and_grad(cov, *(torch.tensor(a, device=dev) for a in (p, x, y)))
+    assert all(c.launches > b for c, b in zip(counters, before))
+    v64, g64 = gp.nlml_value_and_grad(cov, *(torch.tensor(a, device=dev, dtype=torch.float64) for a in (p, x, y)))
+    assert abs(v.item() - v64.item()) <= 1e-4 * abs(v64.item())
+    assert torch.linalg.norm(g.double() - g64) <= 1e-2 * torch.linalg.norm(g64)
