@@ -1,11 +1,14 @@
 """pygpr_torch — the PyTorch and CUDA port of pygpr_tpu.
 
-A second package beside the JAX one, which stays the reference.  This
-first slice covers the exact-GP path: the NLML and its fast gradient,
-the L-BFGS fit, factorize and predict, on ``Sum((RBF(), WhiteNoise()))``
-and its parts.  On an NVIDIA H100 the train gram and the fused Cholesky
-plus triangular inverse run in hand-written CUDA kernels
-(``pygpr_torch/csrc``), built with ``nvcc`` at first use.
+A second package beside the JAX one, which stays the reference.  It
+covers the exact GP (the NLML and its fast gradient, the L-BFGS fit,
+factorize, predict, posterior draws and online extension) and the grBCM
+committee (fit, factorize, aggregate, serve) with the PoE family, on
+``Sum((RBF(), WhiteNoise()))`` and its parts, plus the designs that
+partition a committee.  On an NVIDIA H100 the train gram, the fused
+Cholesky plus triangular inverse and the batched Cholesky run in
+hand-written CUDA kernels (``pygpr_torch/csrc``), built with ``nvcc`` at
+first use.
 
 Tensors run on their own device.  NumPy inputs go to ``device="cuda"``
 unless the caller passes ``device="cpu"``; without a GPU that raises.
@@ -36,10 +39,12 @@ from pygpr_torch.models.exact_gp import (
     GPR,
     ExactGP,
     GPState,
+    extend_state,
     factorize,
     fit_predict,
     precompute_tinv,
     predict,
+    sample_predictive,
 )
 from pygpr_torch.models.likelihood import (
     MLE,
@@ -50,6 +55,10 @@ from pygpr_torch.models.likelihood import (
     nlml_fast,
     nlml_value_and_grad,
 )
-from pygpr_torch.models import priors
+from pygpr_torch.models import committee, grbcm, metrics, priors
+from pygpr_torch.models.grbcm import GRBCM
+from pygpr_torch.models.metrics import loo_cv, loo_nlpd
+from pygpr_torch.models.committee import aggregate_committee, fit_committee, predict_committee
 from pygpr_torch.optimize.lbfgs import FitResult, fit_map, fit_mle, minimize_lbfgs
-from pygpr_torch import convert
+from pygpr_torch import convert, sample
+from pygpr_torch.sample import Matern1, Sobol, Uniform, cluster_samples, sample_gp

@@ -1,8 +1,9 @@
 """Carry state across from the JAX package as NumPy arrays.
 
-A posterior state or parameter vector of ``pygpr_tpu`` becomes the
-port's own through ``np.asarray`` of each field; nothing here imports
-the JAX package.  The packed parameter order is the same in both, e.g.
+A posterior state (one GP or a committee's batched state), a grBCM
+``FitInfo`` or a parameter vector of ``pygpr_tpu`` becomes the port's own
+through ``np.asarray`` of each field; nothing here imports the JAX
+package.  The packed parameter order is the same in both, e.g.
 ``[σ, ℓ₁..ℓ_d, σₙ]`` for ``Sum((RBF(), WhiteNoise()))``, so the kernel
 expression is rebuilt from the port's classes by name
 (:func:`kernel_from_names`).
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from pygpr_torch.models.exact_gp import GPState
+from pygpr_torch.models.grbcm import FitInfo
 from pygpr_torch.ops.kernels import RBF, Kernel, Sum, WhiteNoise
 
 _KERNELS = {"RBF": RBF, "WhiteNoise": WhiteNoise}
@@ -32,15 +34,18 @@ def kernel_from_names(*names: str) -> Kernel:
 
 
 def params_from_numpy(p, device, dtype=None) -> torch.Tensor:
-    """A packed parameter vector ``[nhp]`` (or ``[nc, nhp]``) as a tensor
-    on ``device``; dtype follows the array unless given."""
+    """A packed parameter vector ``[nhp]`` (or a committee's ``[nc, nhp]``,
+    such as ``FitInfo.params_l``) as a tensor on ``device``; dtype follows
+    the array unless given."""
     return torch.as_tensor(np.asarray(p), dtype=dtype, device=device)
 
 
 def state_from_numpy(arrays: Mapping[str, np.ndarray], device) -> GPState:
     """A ``GPState`` from NumPy copies of the JAX ``GPState`` fields (x, y,
     params, chol, weights, jitter, ok and, where present, tinv), for
-    example ``{k: np.asarray(v) for k, v in jax_state._asdict().items()}``."""
+    example ``{k: np.asarray(v) for k, v in jax_state._asdict().items()}``.
+    A committee's batched state (leading ``nc`` on every field) comes
+    across the same way."""
     missing = [f for f in GPState._fields if f != "tinv" and f not in arrays]
     if missing:
         raise ValueError(f"state_from_numpy: missing fields {missing}")
@@ -50,3 +55,12 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], device) -> GPState:
         if arrays.get(f) is not None
     }
     return GPState(**fields)
+
+
+def fit_info_from_numpy(arrays: Mapping[str, np.ndarray], device) -> FitInfo:
+    """A grBCM ``FitInfo`` from NumPy copies of the JAX ``FitInfo``
+    fields (params_g, params_l, nlml_g, nlml_l, ok_l)."""
+    missing = [f for f in FitInfo._fields if f not in arrays]
+    if missing:
+        raise ValueError(f"fit_info_from_numpy: missing fields {missing}")
+    return FitInfo(**{f: torch.tensor(np.asarray(arrays[f]), device=device) for f in FitInfo._fields})

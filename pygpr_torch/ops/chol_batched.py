@@ -1,0 +1,134 @@
+"""Batched blocked Cholesky factor (kernel K3).
+
+Counterpart of two TPU kernels of ``pygpr_tpu/ops/pallas_cholesky.py``:
+``cholesky_pallas`` (one ``[n, n]`` or a grid over ``[nb, n, n]``,
+n ≤ 1024, resident in VMEM) and ``cholesky_pallas_batched`` (``[nb, n, n]``,
+nb ≥ 2, n % 128 == 0, streamed from HBM with the nb pivot chains advancing
+together).  One kernel family takes both: ``K = L Lᵀ`` for ``[n, n]`` or
+``[nb, n, n]`` f32, n and nb at run time, with exact zeros above the
+diagonal.
+
+On a CUDA tensor :func:`cholesky_batched` launches
+``csrc/chol_batched.cu`` (f32 only); on a CPU tensor it runs
+:func:`cholesky_batched_plain`, the same right-looking algorithm over
+64-wide panels in torch ops.  n is padded to a multiple of 64 with an
+identity tail, as ``cholesky_pallas`` pads to 128.  Neither version guards
+a non-positive pivot: its NaN fills the rest of that matrix's factor and no
+other, which is the per-matrix signal of the jitter ladder
+(``ops.linalg``).  Neither writes the caller's ``K``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+#: panel width; NB in csrc/chol_batched.cu
+PANEL = 64
+
+
+def _padded(n: int) -> int:
+    return max(-(-n // PANEL) * PANEL, PANEL)
+
+
+def _factor_blocks(W: torch.Tensor) -> torch.Tensor:
+    """Unblocked right-looking Cholesky of a stack of diagonal blocks
+    ``[nb, 64, 64]`` (lower triangles), NaN on a non-positive pivot."""
+    A = W.clone()
+    for j in range(A.shape[-1]):
+        piv = torch.sqrt(A[:, j, j])
+        A[:, j + 1:, j] /= piv[:, None]
+        A[:, j, j] = piv
+        c = A[:, j + 1:, j]
+        A[:, j + 1:, j + 1:] -= c[:, :, None] * c[:, None, :]
+    return torch.tril(A)
+
+
+def cholesky_batched_plain(K: torch.Tensor) -> torch.Tensor:
+    """The kernel's algorithm in torch ops, on any device and dtype."""
+    A = K if K.ndim == 3 else K[None]
+    nb, n, _ = A.shape
+    n_pad = _padded(n)
+    W = torch.zeros((nb, n_pad, n_pad), dtype=K.dtype, device=K.device)
+    W[:, :n, :n] = torch.tril(A)
+    tail = torch.arange(n, n_pad, device=K.device)
+    W[:, tail, tail] = 1.0
+    eye = torch.eye(PANEL, dtype=K.dtype, device=K.device).expand(nb, PANEL, PANEL)
+    for lo in range(0, n_pad, PANEL):
+        hi = lo + PANEL
+        D = _factor_blocks(W[:, lo:hi, lo:hi])
+        W[:, lo:hi, lo:hi] = D
+        if hi < n_pad:
+            Dinv = torch.linalg.solve_triangular(D, eye, upper=False)
+            X = W[:, hi:, lo:hi] @ Dinv.mT
+            W[:, hi:, lo:hi] = X
+            # each panel's rank-64 product leaves the trailing matrix in
+            # order, as the kernel's does
+            W[:, hi:, hi:] -= X @ X.mT
+    L = torch.tril(W)[:, :n, :n]
+    return L if K.ndim == 3 else L[0]
+
+
+def _lib():
+    from pygpr_torch.ops import _build
+
+    lib = _build.load("chol_batched")
+    fn = lib.chol_batched_f32
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def cholesky_batched_cuda(K: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/chol_batched.cu`` on PyTorch's current stream.
+
+    ``K``: ``[n, n]`` or ``[nb, n, n]``, f32, contiguous, on a CUDA device.
+    Raises on anything else.
+    """
+    if K.device.type != "cuda":
+        raise ValueError("cholesky_batched_cuda: K must be on a CUDA device")
+    if K.dtype != torch.float32:
+        raise TypeError("cholesky_batched_cuda: the kernel takes float32 only")
+    if K.ndim not in (2, 3) or K.shape[-1] != K.shape[-2]:
+        raise ValueError(f"cholesky_batched_cuda: K must be [n, n] or [nb, n, n], got {tuple(K.shape)}")
+    if not K.is_contiguous():
+        raise ValueError("cholesky_batched_cuda: K must be contiguous")
+    n = K.shape[-1]
+    nb = K.shape[0] if K.ndim == 3 else 1
+    if K.numel() == 0:
+        return torch.empty_like(K)
+    fn = _lib()
+    n_pad = _padded(n)
+    opts = dict(dtype=torch.float32, device=K.device)
+    L = torch.empty((nb, n_pad, n_pad), **opts)
+    Dinv = torch.empty((nb, PANEL, PANEL), **opts)
+    stream = torch.cuda.current_stream(K.device).cuda_stream
+    err = fn(K.data_ptr(), L.data_ptr(), Dinv.data_ptr(), nb, n, n_pad, stream)
+    if err != 0:
+        raise RuntimeError(f"chol_batched kernel launch failed: CUDA error {err}")
+    cholesky_batched_cuda.launches += 1
+    if nb >= 2 and n % 128 == 0 and n >= 256:
+        cholesky_batched_cuda.batched_launches += 1
+    if n_pad != n:
+        L = L[:, :n, :n].contiguous()
+    return L if K.ndim == 3 else L[0]
+
+
+#: kernel launches since the count was last set to 0
+cholesky_batched_cuda.launches = 0
+#: of those, launches on a stack in ``cholesky_pallas_batched``'s domain
+#: (nb ≥ 2, n % 128 == 0, n ≥ 256); the rest are ``cholesky_pallas``'s
+cholesky_batched_cuda.batched_launches = 0
+
+
+def cholesky_batched(K: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of SPD ``K``, ``[n, n]`` or ``[nb, n, n]``.
+
+    CPU tensors take :func:`cholesky_batched_plain`; CUDA tensors launch
+    the kernel (f32 only) or raise.  An indefinite matrix gives a
+    non-finite factor, and only that matrix.
+    """
+    if K.device.type == "cpu":
+        return cholesky_batched_plain(K)
+    return cholesky_batched_cuda(K)

@@ -3,20 +3,26 @@
 Counterpart of ``pygpr_tpu/ops/linalg.py``.  Near-singular kernel
 matrices are the common failure in f32, so every factorization runs
 under an escalating jitter ladder: retry with jitter·10^k until the
-factor is finite, per matrix.  ``torch.linalg.cholesky_ex`` reports a
-failure in ``info`` where ``torch.linalg.cholesky`` would raise; a matrix
-that fails every rung gets an all-NaN factor, as XLA's Cholesky gives.
+factor is finite, per matrix.  A matrix that fails every rung gets an
+all-NaN factor, as XLA's Cholesky gives.
+
+Each rung factors f32 input of the shapes the JAX package sends to its
+Pallas Cholesky kernels with kernel K3 (``ops.chol_batched``; its plain
+version on the CPU), and everything else with ``torch.linalg.cholesky_ex``,
+which reports a failure in ``info`` where ``torch.linalg.cholesky`` would
+raise.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from pygpr_torch.config import DEFAULT, Config
-from pygpr_torch.ops import chol_inverse
+from pygpr_torch.ops import chol_batched, chol_inverse
 
 Tensor = torch.Tensor
 
@@ -38,13 +44,37 @@ def add_diag(K: Tensor, eps) -> Tensor:
     return out
 
 
+def batched_kernel_takes(K: Tensor) -> bool:
+    """Routing rule of the ladder, the JAX package's (``safe_cholesky``
+    under ``use_pallas``): f32 ``[n, n]`` with n ≤ 1024 (as
+    ``cholesky_pallas``); ``[nb, n, n]`` with nb ≥ 2, n % 128 == 0 and
+    n ≥ 256 (as ``cholesky_pallas_batched``); any other stack with
+    n ≤ 1024 (``cholesky_pallas`` under ``vmap``).  Leading batch axes
+    count as one."""
+    if K.dtype != torch.float32 or K.ndim < 2:
+        return False
+    n = K.shape[-1]
+    if n <= 1024:
+        return True
+    nb = math.prod(K.shape[:-2])
+    return K.ndim > 2 and nb >= 2 and n % 128 == 0
+
+
 def _ladder(K: Tensor, config: Config):
     rungs = config.jitter_rungs
+    kernel = batched_kernel_takes(K)
 
     def attempt(k):
         jit = config.jitter * torch.pow(10.0, k)
-        L, info = torch.linalg.cholesky_ex(add_diag(K, jit))
-        ok = (info == 0) & torch.isfinite(L).all(dim=-1).all(dim=-1)
+        A = add_diag(K, jit)
+        if kernel:
+            n = K.shape[-1]
+            A = A if A.ndim <= 3 else A.reshape((-1, n, n))
+            L = chol_batched.cholesky_batched(A.contiguous()).reshape(K.shape)
+            ok = torch.isfinite(L).all(dim=-1).all(dim=-1)
+        else:
+            L, info = torch.linalg.cholesky_ex(A)
+            ok = (info == 0) & torch.isfinite(L).all(dim=-1).all(dim=-1)
         return L, jit, ok
 
     k = torch.zeros(K.shape[:-2], dtype=K.dtype, device=K.device)
@@ -129,31 +159,36 @@ def tri_inverse_doubling(L: Tensor, base: int = 128) -> Tensor:
     """Lower-triangular inverse ``T = L⁻¹`` by block doubling: invert the
     n/base diagonal blocks at once, then log₂(n/base) levels stitch pairs
     by ``T₂₁ = −T₂₂ L₂₁ T₁₁`` in two batched GEMMs each (≈ ⅓n³ flops).
-    n is padded to base·2ᵏ with an identity tail.  Not differentiable."""
-    n0 = L.shape[-1]
+    n is padded to base·2ᵏ with an identity tail.  Leading batch axes are
+    inverted together.  Not differentiable."""
+    batch, n0 = L.shape[:-2], L.shape[-1]
     P = 1
     while P * base < n0:
         P *= 2
     n = P * base
+    L = L.reshape((-1, n0, n0))
+    B = L.shape[0]
     if n != n0:
         L = F.pad(L, (0, n - n0, 0, n - n0))
         tail = torch.arange(n0, n, device=L.device)
-        L[tail, tail] = 1.0
+        L[:, tail, tail] = 1.0
     idx = torch.arange(P, device=L.device)
-    eye = torch.eye(base, dtype=L.dtype, device=L.device).expand(P, base, base)
-    Tdiag = torch.linalg.solve_triangular(L.reshape(P, base, P, base)[idx, :, idx, :], eye, upper=False)
-    T = torch.zeros((P, base, P, base), dtype=L.dtype, device=L.device)
-    T[idx, :, idx, :] = Tdiag
-    T = T.reshape(n, n)
+    eye = torch.eye(base, dtype=L.dtype, device=L.device).expand(P, B, base, base)
+    # advanced indices split by a slice go first: blocks are [P, B, base, base]
+    Tdiag = torch.linalg.solve_triangular(L.reshape(B, P, base, P, base)[:, idx, :, idx, :], eye, upper=False)
+    T = torch.zeros((B, P, base, P, base), dtype=L.dtype, device=L.device)
+    T[:, idx, :, idx, :] = Tdiag
+    T = T.reshape(B, n, n)
     s = base
     while s < n:
         even = torch.arange(n // (2 * s), device=L.device) * 2
         odd = even + 1
-        Ls = L.reshape(n // s, s, n // s, s)
-        Ts = T.view(n // s, s, n // s, s)
-        Ts[odd, :, even, :] = -(Ts[odd, :, odd, :] @ (Ls[odd, :, even, :] @ Ts[even, :, even, :]))
+        Ls = L.reshape(B, n // s, s, n // s, s)
+        Ts = T.view(B, n // s, s, n // s, s)
+        Ts[:, odd, :, even, :] = -(Ts[:, odd, :, odd, :] @ (Ls[:, odd, :, even, :] @ Ts[:, even, :, even, :]))
         s *= 2
-    return T[:n0, :n0] if n != n0 else T
+    T = T[:, :n0, :n0] if n != n0 else T
+    return T.reshape(batch + (n0, n0))
 
 
 def syrk_from_tril(T: Tensor, base: int = 512) -> Tensor:

@@ -1,0 +1,10 @@
+"""Designs, partitions and prior draws (``designs``).  MCMC comes later."""
+
+from pygpr_torch.sample.designs import (
+    Matern1,
+    Sobol,
+    Uniform,
+    assign_clusters,
+    cluster_samples,
+    sample_gp,
+)

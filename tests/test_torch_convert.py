@@ -68,3 +68,36 @@ def test_kernel_from_names():
 def test_state_from_numpy_requires_every_field():
     with pytest.raises(ValueError, match="missing"):
         convert.state_from_numpy({"x": np.zeros((2, 1))}, "cpu")
+
+
+def test_jax_committee_state_and_fit_info_come_across(rng):
+    """A JAX committee's batched GPState and grBCM FitInfo, as NumPy,
+    serve the same committee prediction in the port."""
+    from pygpr_torch.models import grbcm as gbt
+    from pygpr_tpu.models import grbcm as gbj
+
+    cj = gj.Sum((gj.RBF(), gj.WhiteNoise()))
+    xl, xg, xs = rng.uniform(0, 2, size=(3, 15, 2)), rng.uniform(0, 2, size=(8, 2)), rng.uniform(0, 2, size=(6, 2))
+    yl, yg = np.sin(2 * xl.sum(-1)), np.sin(2 * xg.sum(-1))
+    info = gbj.FitInfo(
+        params_g=np.array([1.1, 0.9, 1.2, 0.1]), params_l=np.tile([1.0, 1.1, 0.8, 0.2], (3, 1)),
+        nlml_g=np.array(1.0), nlml_l=np.ones(3), ok_l=np.array([True, True, False]),
+    )
+
+    def run(xl, yl, xg, yg, xs):
+        x_aug, y_aug = gbj.augment(xl, yl, xg, yg)
+        sg = gj.factorize(cj, info.params_g, xg, yg)
+        sl = gj.factorize(cj, info.params_l, x_aug, y_aug)
+        return sg, sl, gbj.predict(cj, info.params_g, info.params_l, sg, sl, xs, "diag", mask=info.ok_l)
+
+    sg, sl, want = jax.jit(run)(*(jnp.asarray(a) for a in (xl, yl, xg, yg, xs)))
+    ft = convert.fit_info_from_numpy(info._asdict(), "cpu")
+    sg_t, sl_t = (convert.state_from_numpy({k: None if v is None else np.asarray(v) for k, v in s._asdict().items()}, "cpu")
+                  for s in (sg, sl))
+    assert sl_t.chol.shape == (3, 23, 23)
+    ct = gt.Sum((gt.RBF(), gt.WhiteNoise()))
+    got = gbt.predict(ct, ft.params_g, ft.params_l, sg_t, sl_t, torch.tensor(xs), "diag", mask=ft.ok_l)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-8, atol=1e-8)
+    with pytest.raises(ValueError):
+        convert.fit_info_from_numpy({"params_g": info.params_g}, "cpu")

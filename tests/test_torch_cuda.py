@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import pygpr_torch as gp
-from pygpr_torch.ops import chol_inverse, gram
+from pygpr_torch.ops import chol_batched, chol_inverse, gram
 
 pytestmark = pytest.mark.cuda
 
@@ -78,6 +78,50 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         chol_inverse.cholesky_inverse_cuda(torch.eye(320, device=dev))
     with pytest.raises(ValueError):
         chol_inverse.cholesky_inverse_cuda(torch.eye(256, device=dev).T)
+
+
+def _spd_stack(nb, n, dev, seed=0):
+    x = np.random.default_rng(seed).uniform(0.0, 2.0, size=(nb, n, 2)).astype(np.float32)
+    p = torch.tensor([1.0, 1.2, 0.8, 0.1], device=dev)
+    return torch.stack([gram.rbf_noise_gram_plain(p, torch.tensor(xi, device=dev)) for xi in x])
+
+
+@pytest.mark.parametrize("shape", [(300, 300), (4, 512, 512)])
+def test_chol_batched_kernel_matches_plain_and_f64(shape, dev):
+    """K3 against its plain version (1e-3 of max|L|: the same algorithm,
+    another summation order) and f64 (‖L−L64‖F ≤ 1e-3 ‖L64‖F)."""
+    K = _spd_stack(1 if len(shape) == 2 else shape[0], shape[-1], dev)
+    K = K[0] if len(shape) == 2 else K
+    K0 = K.clone()
+    L = chol_batched.cholesky_batched_cuda(K)
+    torch.cuda.synchronize()
+    assert torch.equal(K, K0)  # the caller's K is not written
+    assert L.shape == K.shape
+    Lp = chol_batched.cholesky_batched_plain(K)
+    assert (L - Lp).abs().max() <= 1e-3 * Lp.abs().max()
+    L64 = torch.linalg.cholesky(K.double())
+    assert torch.linalg.norm(L.double() - L64) <= 1e-3 * torch.linalg.norm(L64)
+    assert (torch.triu(L, 1) == 0).all()
+
+
+def test_chol_batched_kernel_nan_stays_in_its_matrix(dev):
+    K = _spd_stack(4, 320, dev)
+    K[2] = -torch.eye(320, device=dev)
+    L = chol_batched.cholesky_batched_cuda(K)
+    torch.cuda.synchronize()
+    lower = torch.ones(320, 320, dtype=torch.bool, device=dev).tril()
+    assert torch.isnan(L[2][lower]).all()
+    for i in (0, 1, 3):
+        assert torch.equal(L[i], chol_batched.cholesky_batched_cuda(K[i].contiguous()))
+
+
+def test_chol_batched_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    with pytest.raises(TypeError):
+        chol_batched.cholesky_batched_cuda(torch.eye(64, device=dev, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        chol_batched.cholesky_batched_cuda(torch.ones(4, 64, device=dev).T)
+    with pytest.raises(ValueError):
+        chol_batched.cholesky_batched_cuda(torch.eye(64))
 
 
 def test_main_path_launches_both_kernels_and_matches_f64(dev):

@@ -286,9 +286,83 @@ def test_f32_slice_runs_through_both_plain_kernels(monkeypatch):
     assert torch.linalg.norm(g32.double() - g64) <= 1e-2 * torch.linalg.norm(g64)
 
 
+@pytest.fixture(scope="module")
+def extended():
+    """A served state, the new points, and the JAX package's extended
+    state and posterior factor, from one compiled program."""
+    cj, _ = _covs()
+    x, y, _ = make_data(40, 2, 11)
+    x2, y2, _ = make_data(6, 2, 12)
+    x2[0] = x[3]  # a duplicated point: its Schur pivot needs the ladder
+    p = np.array([1.1, 0.9, 1.2, 0.05])
+    xs = np.random.default_rng(13).uniform(0, 2, size=(8, 2))
+
+    def run(p, x, y, x2, y2, xs):
+        s = gj.precompute_tinv(gj.factorize(cj, p, x, y))
+        e = gj.extend_state(cj, s, x2, y2)
+        mean, cov = gj.predict(cj, e, xs, "full")
+        return e, mean, gj.safe_cholesky(cov).chol
+
+    want = jax.jit(run)(*(jnp.asarray(a) for a in (p, x, y, x2, y2, xs)))
+    return (x, y, x2, y2, p, xs), jax.tree_util.tree_map(np.asarray, want)
+
+
+def test_extend_state_matches_jax_and_refactorizing(extended):
+    (x, y, x2, y2, p, xs), (ej, _, _) = extended
+    _, ct = _covs()
+    s = gt.precompute_tinv(gt.factorize(ct, torch.tensor(p), torch.tensor(x), torch.tensor(y)))
+    e = gt.extend_state(ct, s, x2, y2)
+    for f in ("x", "y", "chol", "weights", "jitter", "ok", "tinv"):
+        np.testing.assert_allclose(getattr(e, f).numpy(), getattr(ej, f), rtol=1e-8, atol=1e-8)
+    full = gt.factorize(ct, torch.tensor(p), torch.cat([e.x[:40], e.x[40:]]), e.y)
+    np.testing.assert_allclose(e.chol.numpy(), full.chol.numpy(), rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(e.weights.numpy(), full.weights.numpy(), rtol=1e-6, atol=1e-6)
+    model = gt.ExactGP(x, y, ct, device="cpu")
+    model.set_params(p)
+    model.update()
+    model.add_data(x2, y2)
+    np.testing.assert_allclose(model.state.chol.numpy(), e.chol.numpy(), rtol=1e-12, atol=1e-12)
+    assert model.x.shape == (46, 2) and not model.need_upd
+
+
+def test_extend_state_committee_is_per_expert(rng):
+    _, ct = _covs()
+    x, y, p = _committee(rng, nc=2, n=20)
+    x2, y2 = rng.uniform(0, 2, size=(3, 2)), rng.normal(size=3)
+    s = gt.factorize(ct, torch.tensor(p), torch.tensor(x), torch.tensor(y))
+    e = gt.extend_state(ct, s, x2, y2)
+    for i in range(2):
+        si = gt.factorize(ct, torch.tensor(p[i]), torch.tensor(x[i]), torch.tensor(y[i]))
+        ei = gt.extend_state(ct, si, x2, y2)
+        np.testing.assert_allclose(e.chol[i].numpy(), ei.chol.numpy(), rtol=1e-12, atol=1e-12)
+
+
+def test_sample_predictive_matches_jax_and_its_moments(extended):
+    """The deterministic part of the draws (mean and the laddered factor
+    of the predictive covariance) against JAX at 1e-8; the draws' mean
+    and covariance within Monte-Carlo tolerance."""
+    (x, y, x2, y2, p, xs), (_, mj, lj) = extended
+    _, ct = _covs()
+    s = gt.extend_state(ct, gt.factorize(ct, torch.tensor(p), torch.tensor(x), torch.tensor(y)), x2, y2)
+    mean, lp = gt.models.exact_gp.predictive_factor(ct, s, xs)
+    np.testing.assert_allclose(mean.numpy(), mj, rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(lp.numpy(), lj, rtol=1e-8, atol=1e-8)
+    n = 2000
+    draws = gt.sample_predictive(ct, s, xs, torch.Generator().manual_seed(1), n)
+    assert draws.shape == (n, 8)
+    cov = lp @ lp.T
+    sd = torch.sqrt(torch.diagonal(cov))
+    assert torch.all(torch.abs(draws.mean(0) - mean) < 5 * sd / np.sqrt(n))
+    assert torch.all(torch.abs(torch.cov(draws.T) - cov) < 6 * torch.outer(sd, sd) * np.sqrt(2.0 / n))
+    s2 = gt.factorize(ct, torch.tensor(np.stack([p, p])), torch.tensor(np.stack([x, x])), torch.tensor(np.stack([y, y])))
+    assert gt.sample_predictive(ct, s2, xs, None, 3).shape == (2, 3, 8)
+
+
 def test_port_never_imports_jax():
     code = (
-        "import sys, pygpr_torch, pygpr_torch.convert; "
+        "import sys, pygpr_torch, pygpr_torch.convert, pygpr_torch.models.grbcm, "
+        "pygpr_torch.models.committee, pygpr_torch.models.metrics, pygpr_torch.sample, "
+        "pygpr_torch.sample.designs, pygpr_torch.ops.chol_batched; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'pygpr_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
