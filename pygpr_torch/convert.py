@@ -1,9 +1,9 @@
 """Carry state across from the JAX package as NumPy arrays.
 
 A posterior state (one GP or a committee's batched state), a grBCM
-``FitInfo`` or a parameter vector of ``pygpr_tpu`` becomes the port's own
-through ``np.asarray`` of each field; nothing here imports the JAX
-package.  The packed parameter order is the same in both, e.g.
+``FitInfo``, an ``IterativeGP`` or a parameter vector of ``pygpr_tpu``
+becomes the port's own through ``np.asarray`` of each field; nothing here
+imports the JAX package.  The packed parameter order is the same in both, e.g.
 ``[σ, ℓ₁..ℓ_d, σₙ]`` for ``Sum((RBF(), WhiteNoise()))``, so the kernel
 expression is rebuilt from the port's classes by name
 (:func:`kernel_from_names`).
@@ -17,7 +17,9 @@ import numpy as np
 import torch
 
 from pygpr_torch.models.exact_gp import GPState
+from pygpr_torch.config import DEFAULT, Config
 from pygpr_torch.models.grbcm import FitInfo
+from pygpr_torch.models.iterative import IterativeGP
 from pygpr_torch.ops.kernels import RBF, Kernel, Sum, WhiteNoise
 
 _KERNELS = {"RBF": RBF, "WhiteNoise": WhiteNoise}
@@ -64,3 +66,21 @@ def fit_info_from_numpy(arrays: Mapping[str, np.ndarray], device) -> FitInfo:
     if missing:
         raise ValueError(f"fit_info_from_numpy: missing fields {missing}")
     return FitInfo(**{f: torch.tensor(np.asarray(arrays[f]), device=device) for f in FitInfo._fields})
+
+
+def iterative_gp_from_numpy(arrays: Mapping[str, np.ndarray], kern: Kernel, device, *, rank: int = 64,
+                            block: int = 2048, config: Config = DEFAULT) -> IterativeGP:
+    """The port's ``IterativeGP`` from NumPy copies of a JAX
+    ``IterativeGP``'s arrays (x, y, params, probes), for example
+    ``{k: np.asarray(getattr(m, k)) for k in ("x", "y", "params", "probes")}``
+    with ``rank=m.rank, block=m.block``.  The probes are carried across,
+    not drawn again, so the estimator is the same function."""
+    missing = [f for f in ("x", "y", "params", "probes") if f not in arrays]
+    if missing:
+        raise ValueError(f"iterative_gp_from_numpy: missing arrays {missing}")
+    probes = np.asarray(arrays["probes"])
+    model = IterativeGP(np.array(arrays["x"]), np.array(arrays["y"]), kern, num_probes=probes.shape[1],
+                        rank=rank, block=block, config=config, device=device)
+    model.set_params(np.array(arrays["params"]))
+    model.probes = torch.tensor(probes, dtype=model.x.dtype, device=model.x.device)
+    return model

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 import pygpr_torch as gp
-from pygpr_torch.ops import chol_batched, chol_inverse, gram
+from pygpr_torch.models import iterative
+from pygpr_torch.ops import chol_batched, chol_inverse, gram, matvec
 
 pytestmark = pytest.mark.cuda
 
@@ -134,3 +135,69 @@ def test_main_path_launches_both_kernels_and_matches_f64(dev):
     v64, g64 = gp.nlml_value_and_grad(cov, *(torch.tensor(a, device=dev, dtype=torch.float64) for a in (p, x, y)))
     assert abs(v.item() - v64.item()) <= 1e-4 * abs(v64.item())
     assert torch.linalg.norm(g.double() - g64) <= 1e-2 * torch.linalg.norm(g64)
+
+
+@pytest.mark.parametrize("n,d,k", [(1, 1, 1), (63, 2, 9), (1030, 3, 7), (300, 64, 20), (2048, 2, 56)])
+def test_matvec_kernel_matches_f64_and_repeats_bit_equal(n, d, k, dev):
+    """K4 against its plain version in f64 on the same f32 inputs, to
+    1e-4 + 1e-3 of each column's largest entry (chip_smoke.py states why
+    the column's scale), and two launches give the same bits."""
+    rng = np.random.default_rng(n + d + k)
+    x = torch.tensor(rng.uniform(0.0, 4.0, (n, d)), dtype=torch.float32, device=dev)
+    v = torch.tensor(rng.standard_normal((n, k)), dtype=torch.float32, device=dev)
+    th = torch.tensor(np.r_[1.2, np.linspace(0.8, 1.1, d)], dtype=torch.float32, device=dev)
+    out = matvec.rbf_gram_matvec_cuda(th, x, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, matvec.rbf_gram_matvec_cuda(th, x, v))
+    p64 = matvec.rbf_gram_matvec_plain(th.double(), x.double(), v.double())
+    assert ((out.double() - p64).abs() <= 1e-4 + 1e-3 * p64.abs().amax(dim=0)).all()
+
+
+def test_matvec_backward_matches_f64_autograd(dev):
+    """θ̄, x̄ and V̄ from K4's backward (K4 again on the batched columns)
+    against autograd through the f64 plain version, 1e-3 relative."""
+    rng = np.random.default_rng(7)
+    x, v, w = (torch.tensor(a, dtype=torch.float32, device=dev)
+               for a in (rng.uniform(0.0, 4.0, (512, 2)), *rng.standard_normal((2, 512, 4))))
+    th = torch.tensor([1.0, 0.9, 1.1], device=dev)
+    leaves = [t.clone().requires_grad_(True) for t in (th, x, v)]
+    before = matvec.rbf_gram_matvec_cuda.launches
+    grads = torch.autograd.grad(torch.sum(w * matvec.rbf_gram_matvec(*leaves)), leaves)
+    assert matvec.rbf_gram_matvec_cuda.launches == before + 2
+    leaves64 = [t.double().requires_grad_(True) for t in (th, x, v)]
+    grads64 = torch.autograd.grad(torch.sum(w.double() * matvec.rbf_gram_matvec_plain(*leaves64)), leaves64)
+    for a, b in zip(grads, grads64):
+        assert torch.linalg.norm(a.double() - b) <= 1e-3 * torch.linalg.norm(b)
+
+
+def test_matvec_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    x, v, th = torch.zeros(8, 2, device=dev), torch.zeros(8, 3, device=dev), torch.ones(3, device=dev)
+    with pytest.raises(TypeError):
+        matvec.rbf_gram_matvec_cuda(th.double(), x.double(), v.double())
+    with pytest.raises(ValueError):
+        matvec.rbf_gram_matvec_cuda(th[:2], x, v)
+    with pytest.raises(ValueError):
+        matvec.rbf_gram_matvec_cuda(th, x, torch.zeros(3, 8, device=dev).T)
+    with pytest.raises(ValueError):
+        matvec.rbf_gram_matvec_cuda(th, x, torch.zeros(8, 0, device=dev))
+    with pytest.raises(TypeError):  # the f32 RBF path launches K4 or raises, never falls back
+        matvec.rbf_gram_matvec(th, x, v.double())
+
+
+def test_iterative_path_launches_k4_and_matches_f64(dev):
+    """The iterative NLML on an f32 RBF launches K4 in every piece (CG,
+    Lanczos, the surrogate's forward and backward) and agrees with the
+    same estimator in f64 (the blocked path)."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0.0, 4.0, (2048, 2))
+    y = np.sin(2.0 * x.sum(-1)) + 0.1 * rng.normal(size=2048)
+    z = iterative.make_probes(2048, 8, 0)
+    p = np.array([1.0, 1.0, 1.0, 0.1])
+    kw = dict(rank=64, num_lanczos=16, cg_tol=1e-6, max_cg=400, block=1024)
+    args = [torch.tensor(a, dtype=torch.float32, device=dev) for a in (p, x, y, z)]
+    matvec.rbf_gram_matvec_cuda.launches = 0
+    v, g = iterative.nlml_value_and_grad(gp.RBF(), *args, **kw)
+    assert matvec.rbf_gram_matvec_cuda.launches >= 16 + 4
+    v64, g64 = iterative.nlml_value_and_grad(gp.RBF(), *(a.double() for a in args), **kw)
+    assert abs(v.item() - v64.item()) <= 1e-3 * abs(v64.item())
+    assert torch.linalg.norm(g.double() - g64) <= 5e-2 * torch.linalg.norm(g64)
