@@ -5,10 +5,13 @@ covers the exact GP (the NLML and its fast gradient, the L-BFGS fit,
 factorize, predict, posterior draws and online extension) and the grBCM
 committee (fit, factorize, aggregate, serve) with the PoE family, on
 ``Sum((RBF(), WhiteNoise()))`` and its parts, plus the designs that
-partition a committee, and the matrix-free iterative GP (Krylov NLML,
-Adam fit, CG predict) on the bare ``RBF()``.  On an NVIDIA H100 the train
-gram, the fused Cholesky plus triangular inverse, the batched Cholesky
-and the fused gram-matvec run in hand-written CUDA kernels
+partition a committee, the matrix-free iterative GP (Krylov NLML, Adam
+fit, CG predict) and sparse SGPR (collapsed ELBO, L-BFGS fit, predict) on
+the bare ``RBF()``, and the benchmark entry points (``pygpr_torch.bench``,
+with its stage probe ``pygpr_torch.bench.mfu_probe``).  On an NVIDIA H100
+the train gram, the fused Cholesky plus triangular inverse, the batched
+Cholesky, the fused gram-matvec and the probe's per-block Cholesky and
+triangular inverse run in hand-written CUDA kernels
 (``pygpr_torch/csrc``), built with ``nvcc`` at first use.
 
 Tensors run on their own device.  NumPy inputs go to ``device="cuda"``
@@ -56,9 +59,10 @@ from pygpr_torch.models.likelihood import (
     nlml_fast,
     nlml_value_and_grad,
 )
-from pygpr_torch.models import committee, grbcm, iterative, metrics, priors
+from pygpr_torch.models import committee, grbcm, iterative, metrics, priors, sgpr
 from pygpr_torch.models.grbcm import GRBCM
 from pygpr_torch.models.iterative import IterativeGP
+from pygpr_torch.models.sgpr import SGPR
 from pygpr_torch.models.metrics import loo_cv, loo_nlpd
 from pygpr_torch.models.committee import aggregate_committee, fit_committee, predict_committee
 from pygpr_torch.optimize.lbfgs import FitResult, fit_map, fit_mle, minimize_lbfgs

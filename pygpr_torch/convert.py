@@ -1,7 +1,8 @@
 """Carry state across from the JAX package as NumPy arrays.
 
 A posterior state (one GP or a committee's batched state), a grBCM
-``FitInfo``, an ``IterativeGP`` or a parameter vector of ``pygpr_tpu``
+``FitInfo``, an ``IterativeGP``, an ``SGPRState`` or a parameter vector
+of ``pygpr_tpu``
 becomes the port's own through ``np.asarray`` of each field; nothing here
 imports the JAX package.  The packed parameter order is the same in both, e.g.
 ``[σ, ℓ₁..ℓ_d, σₙ]`` for ``Sum((RBF(), WhiteNoise()))``, so the kernel
@@ -20,6 +21,7 @@ from pygpr_torch.models.exact_gp import GPState
 from pygpr_torch.config import DEFAULT, Config
 from pygpr_torch.models.grbcm import FitInfo
 from pygpr_torch.models.iterative import IterativeGP
+from pygpr_torch.models.sgpr import SGPRState
 from pygpr_torch.ops.kernels import RBF, Kernel, Sum, WhiteNoise
 
 _KERNELS = {"RBF": RBF, "WhiteNoise": WhiteNoise}
@@ -84,3 +86,14 @@ def iterative_gp_from_numpy(arrays: Mapping[str, np.ndarray], kern: Kernel, devi
     model.set_params(np.array(arrays["params"]))
     model.probes = torch.tensor(probes, dtype=model.x.dtype, device=model.x.device)
     return model
+
+
+def sgpr_state_from_numpy(arrays: Mapping[str, np.ndarray], device) -> SGPRState:
+    """An ``SGPRState`` from NumPy copies of the JAX ``SGPRState`` fields
+    (z, params, tinv_kuu, tinv_b, c, ok), for example
+    ``{k: np.asarray(v) for k, v in jax_state._asdict().items()}``.  Its
+    ``params`` are the packed ``[θ…, σₙ]`` that the predict reads."""
+    missing = [f for f in SGPRState._fields if f not in arrays]
+    if missing:
+        raise ValueError(f"sgpr_state_from_numpy: missing fields {missing}")
+    return SGPRState(**{f: torch.tensor(np.asarray(arrays[f]), device=device) for f in SGPRState._fields})

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rbf_noise_gram", "chol_inverse", "chol_batched", "rbf_gram_matvec")
+SOURCES = ("rbf_noise_gram", "chol_inverse", "chol_batched", "rbf_gram_matvec", "block_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

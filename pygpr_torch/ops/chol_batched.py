@@ -20,12 +20,20 @@ other, which is the per-matrix signal of the jitter ladder
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 #: panel width; NB in csrc/chol_batched.cu
 PANEL = 64
+
+
+def batched_domain(nb: int, n: int) -> bool:
+    """Whether a stack of ``nb`` matrices ``[n, n]`` lies in
+    ``cholesky_pallas_batched``'s domain (B5); the rest is
+    ``cholesky_pallas``'s (B4)."""
+    return nb >= 2 and n % 128 == 0 and n >= 256
 
 
 def _padded(n: int) -> int:
@@ -108,7 +116,8 @@ def cholesky_batched_cuda(K: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"chol_batched kernel launch failed: CUDA error {err}")
     cholesky_batched_cuda.launches += 1
-    if nb >= 2 and n % 128 == 0 and n >= 256:
+    cholesky_batched_cuda.shapes[(nb, n)] += 1
+    if batched_domain(nb, n):
         cholesky_batched_cuda.batched_launches += 1
     if n_pad != n:
         L = L[:, :n, :n].contiguous()
@@ -120,6 +129,8 @@ cholesky_batched_cuda.launches = 0
 #: of those, launches on a stack in ``cholesky_pallas_batched``'s domain
 #: (nb ≥ 2, n % 128 == 0, n ≥ 256); the rest are ``cholesky_pallas``'s
 cholesky_batched_cuda.batched_launches = 0
+#: the launches by shape (nb, n)
+cholesky_batched_cuda.shapes = collections.Counter()
 
 
 def cholesky_batched(K: torch.Tensor) -> torch.Tensor:

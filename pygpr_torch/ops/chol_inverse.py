@@ -15,6 +15,7 @@ writes the caller's ``K``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Tuple
 
@@ -24,6 +25,9 @@ import torch
 PANEL = 64
 #: most k-splits of one left-looking product (sizes the scratch)
 MAX_SPLITS = 16
+#: largest n of ``cholesky_inverse_pallas``; the JAX package hands a larger
+#: n to ``cholesky_inverse_pallas_rolled``
+MAX_FUSED_N = 5632
 
 
 def takes(K: torch.Tensor) -> bool:
@@ -111,11 +115,19 @@ def cholesky_inverse_cuda(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if err != 0:
         raise RuntimeError(f"chol_inverse kernel launch failed: CUDA error {err}")
     cholesky_inverse_cuda.launches += 1
+    cholesky_inverse_cuda.shapes[(n,)] += 1
+    if n > MAX_FUSED_N:
+        cholesky_inverse_cuda.rolled_launches += 1
     return L, T
 
 
 #: kernel launches since the count was last set to 0
 cholesky_inverse_cuda.launches = 0
+#: of those, launches at n > MAX_FUSED_N (``cholesky_inverse_pallas_rolled``'s
+#: domain); the rest are ``cholesky_inverse_pallas``'s
+cholesky_inverse_cuda.rolled_launches = 0
+#: the launches by shape (n,)
+cholesky_inverse_cuda.shapes = collections.Counter()
 
 
 def cholesky_inverse(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -19,6 +19,7 @@ gradient mode does.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -75,11 +76,14 @@ def rbf_noise_gram_cuda(params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"rbf_noise_gram kernel launch failed: CUDA error {err}")
     rbf_noise_gram_cuda.launches += 1
+    rbf_noise_gram_cuda.shapes[(n, d)] += 1
     return out
 
 
 #: kernel launches since the count was last set to 0
 rbf_noise_gram_cuda.launches = 0
+#: the same launches by shape (n, d)
+rbf_noise_gram_cuda.shapes = collections.Counter()
 
 
 def _gram(params, x):

@@ -155,12 +155,32 @@ def half_logdet_from_chol(L: Tensor) -> Tensor:
     return torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
 
 
+class _TriInverse(torch.autograd.Function):
+    """T = L⁻¹ whose backward is the inverse's adjoint, L̄ = −tril(Tᵀ T̄ Tᵀ)
+    (dT = −T dL T, restricted to L's lower triangle)."""
+
+    @staticmethod
+    def forward(ctx, L, base):
+        T = _tri_inverse_doubling(L, base)
+        ctx.save_for_backward(T)
+        return T
+
+    @staticmethod
+    def backward(ctx, Tbar):
+        (T,) = ctx.saved_tensors
+        return -torch.tril(T.mT @ Tbar @ T.mT), None
+
+
 def tri_inverse_doubling(L: Tensor, base: int = 128) -> Tensor:
     """Lower-triangular inverse ``T = L⁻¹`` by block doubling: invert the
     n/base diagonal blocks at once, then log₂(n/base) levels stitch pairs
     by ``T₂₁ = −T₂₂ L₂₁ T₁₁`` in two batched GEMMs each (≈ ⅓n³ flops).
     n is padded to base·2ᵏ with an identity tail.  Leading batch axes are
-    inverted together.  Not differentiable."""
+    inverted together.  Differentiable in ``L`` (SGPR's bound)."""
+    return _TriInverse.apply(L, base)
+
+
+def _tri_inverse_doubling(L: Tensor, base: int) -> Tensor:
     batch, n0 = L.shape[:-2], L.shape[-1]
     P = 1
     while P * base < n0:

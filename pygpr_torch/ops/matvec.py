@@ -21,6 +21,7 @@ left out when x needs no gradient (the iterative NLML never asks for it).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -89,11 +90,14 @@ def rbf_gram_matvec_cuda(theta: torch.Tensor, x: torch.Tensor, v: torch.Tensor) 
     if err != 0:
         raise RuntimeError(f"rbf_gram_matvec kernel launch failed: CUDA error {err}")
     rbf_gram_matvec_cuda.launches += 1
+    rbf_gram_matvec_cuda.shapes[(n, d, k)] += 1
     return out
 
 
 #: kernel launches since the count was last set to 0
 rbf_gram_matvec_cuda.launches = 0
+#: the same launches by shape (n, d, k)
+rbf_gram_matvec_cuda.shapes = collections.Counter()
 
 
 def _matvec(theta, x, v):

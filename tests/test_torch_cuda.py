@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import pygpr_torch as gp
+from pygpr_torch.bench import mfu_probe
 from pygpr_torch.models import iterative
 from pygpr_torch.ops import chol_batched, chol_inverse, gram, matvec
 
@@ -201,3 +202,55 @@ def test_iterative_path_launches_k4_and_matches_f64(dev):
     v64, g64 = iterative.nlml_value_and_grad(gp.RBF(), *(a.double() for a in args), **kw)
     assert abs(v.item() - v64.item()) <= 1e-3 * abs(v64.item())
     assert torch.linalg.norm(g.double() - g64) <= 5e-2 * torch.linalg.norm(g64)
+
+
+def _block_strips(P, dev, seed=0):
+    """The probe's strips: the P diagonal 128-blocks of K = AAᵀ/n + 4I
+    (n = 128P) and tril of each + 2I, f32 on the card."""
+    n = 128 * P
+    A = torch.tensor(np.random.default_rng(seed).standard_normal((n, n)).astype(np.float32), device=dev)
+    K = A @ A.T / n + 4.0 * torch.eye(n, device=dev)
+    blocks = torch.stack([K[i * 128:(i + 1) * 128, i * 128:(i + 1) * 128] for i in range(P)])
+    return blocks, torch.tril(blocks) + 2.0 * torch.eye(128, device=dev)
+
+
+@pytest.mark.parametrize("P", [2, 16])
+def test_block_probe_kernels_match_plain_and_f64(P, dev):
+    """B7 and B8 against their plain versions and f64 on the card, within
+    1e-5 of the largest entry (about 40 ulps: f32 sums of up to 128 terms
+    in another order), exact zeros above the diagonal, and two launches
+    bit-equal (no atomics)."""
+    blocks, trils = _block_strips(P, dev)
+    S, St = blocks.reshape(-1, 128), trils.reshape(-1, 128)
+    L = mfu_probe.pivots_strip(S).reshape(P, 128, 128)
+    T = mfu_probe.tinv_strip(St).reshape(P, 128, 128)
+    torch.cuda.synchronize()
+    L64 = torch.linalg.cholesky(blocks.double())
+    T64 = torch.linalg.solve_triangular(trils.double(), torch.eye(128, device=dev, dtype=torch.float64), upper=False)
+    assert (L.double() - L64).abs().max() <= 1e-5 * L64.abs().max()
+    assert (L - mfu_probe.micro_cholesky(blocks)).abs().max() <= 1e-5 * L.abs().max()
+    assert (T.double() - T64).abs().max() <= 1e-5 * T64.abs().max()
+    assert (T - mfu_probe.tri_inverse_block(trils)).abs().max() <= 1e-5 * T.abs().max()
+    assert (torch.triu(L, 1) == 0).all() and (torch.triu(T, 1) == 0).all()
+    assert torch.equal(mfu_probe.pivots_strip(S), L.reshape(-1, 128))
+    assert torch.equal(mfu_probe.tinv_strip(St), T.reshape(-1, 128))
+
+
+def test_pivots_kernel_nan_stays_in_its_block(dev):
+    blocks, _ = _block_strips(4, dev)
+    blocks[2] = -blocks[2]
+    L = mfu_probe.pivots_strip(blocks.reshape(-1, 128)).reshape(4, 128, 128)
+    torch.cuda.synchronize()
+    lower = torch.ones(128, 128, dtype=torch.bool, device=dev).tril()
+    assert torch.isnan(L[2][lower]).all()
+    assert torch.isfinite(L[[0, 1, 3]]).all()
+
+
+def test_block_probe_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    for fn in (mfu_probe.pivots_strip, mfu_probe.tinv_strip):
+        with pytest.raises(TypeError):
+            fn(torch.eye(128, device=dev, dtype=torch.float64))
+        with pytest.raises(ValueError):
+            fn(torch.ones(256, 256, device=dev)[:, :128])
+        with pytest.raises(ValueError):
+            fn(torch.ones(192, 128, device=dev))
