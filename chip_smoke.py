@@ -181,22 +181,55 @@ def main() -> int:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps
 
+    def queued_ms(fn, reps=50, spin=20_000_000):
+        """CUDA-event ms a call of a kernel shorter than the host's dispatch:
+        a spin kernel of ``spin`` clock cycles holds the stream while the
+        host queues the calls, so the events time them back to back on the
+        device.  Also whether the host finished queueing before the spin
+        ended (else the time includes the host's gaps)."""
+        fn()
+        torch.cuda.synchronize()
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s.record()
+        torch.cuda._sleep(spin)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        queue_ms = 1e3 * (time.perf_counter() - t0)
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps, queue_ms < s.elapsed_time(a)
+
+    def shape_ms(fn):
+        """queued_ms of 3 to 50 calls, about 50 ms of device time, behind
+        a spin twice as long as the host takes to queue them (at 1.98 GHz)."""
+        est = cuda_ms(fn, 1)
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reps = max(3, min(50, int(50.0 / max(est, 1e-3))))
+        return queued_ms(fn, reps, spin=max(20_000_000, int(2.0 * 1.98e9 * reps * host_s)))
+
     def to_dev(*arrays, dtype=torch.float32):
         return [torch.as_tensor(a, dtype=dtype, device=dev) for a in arrays]
 
     def device_ms(fn):
         """Device time (ms) of one call of ``fn`` by group of kernels, from
         torch.profiler: K1, K2's one-block diagonal factorizations (its
-        pivot chain), K2's products, K3's diagonal blocks (its pivot
-        chain), K3's products, K4, and every other kernel ("torch")."""
+        pivot chain), K2's products, K3's panel launches (each block
+        factors the diagonal block with warps and solves its rows below
+        it: K3's pivot chain), K3's trailing updates and its load, K4, and
+        every other kernel ("torch")."""
         from torch.profiler import ProfilerActivity, profile
 
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        groups = {"k1": 0.0, "k2_pivot_chain": 0.0, "k2_products": 0.0, "k3_pivot_chain": 0.0,
-                  "k3_products": 0.0, "k4": 0.0, "torch": 0.0}
+        groups = {"k1": 0.0, "k2_pivot_chain": 0.0, "k2_products": 0.0, "k3_panel": 0.0,
+                  "k3_update": 0.0, "k4": 0.0, "torch": 0.0}
         for e in prof.key_averages():
             us = getattr(e, "device_time_total", None)
             us = getattr(e, "cuda_time_total", 0.0) if us is None else us
@@ -204,10 +237,10 @@ def main() -> int:
                 groups["k4"] += us
             elif "rbf_noise_gram_kernel" in e.key:
                 groups["k1"] += us
-            elif "chol_batched_diag_kernel" in e.key:
-                groups["k3_pivot_chain"] += us
+            elif "chol_batched_panel_kernel" in e.key:
+                groups["k3_panel"] += us
             elif "chol_batched_" in e.key:
-                groups["k3_products"] += us
+                groups["k3_update"] += us
             elif "diag_block_kernel" in e.key:
                 groups["k2_pivot_chain"] += us
             elif any(k in e.key for k in ("gemm_kernel", "splitk_reduce_kernel", "zero_upper_kernel")):
@@ -344,9 +377,13 @@ def main() -> int:
         err = (L - Lp).abs().max().item()
         rel_p = err / L.abs().max().item()
         del Lp
+        # device time queued behind a spin (a small matrix's launches are
+        # shorter than the host's dispatch of them), and back to back as
+        # the host issues them
+        ms, ahead = shape_ms(lambda: chol_batched.cholesky_batched_cuda(K))
+        lib_ms = shape_ms(lambda: torch.linalg.cholesky_ex(K))[0]
         reps = 3 if n >= 4096 else 10
-        ms = cuda_ms(lambda: chol_batched.cholesky_batched_cuda(K), reps)
-        lib_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(K), reps)
+        unqueued_ms = cuda_ms(lambda: chol_batched.cholesky_batched_cuda(K), reps)
         parts = device_ms(lambda: chol_batched.cholesky_batched_cuda(K))
         b_ms, b_by = bound_ms(8.0 * nb * n * n, nb * n**3 / 3.0)
         shape = list(K.shape)
@@ -358,8 +395,9 @@ def main() -> int:
         emit({"phase": "k3_chol_batched", "shape": shape, "rel_err_L_vs_f64": rel_l, "upper_zero": zeros,
               "max_abs_err_vs_plain": err, "ok": ok, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
               "bound_by": b_by, "library_ms_cholesky_ex": lib_ms, "ms_over_bound": ms / b_ms,
-              "ms_over_library": ms / lib_ms, "panels": -(-n // chol_batched.PANEL),
-              "pivot_chain_ms": parts["k3_pivot_chain"], "products_ms": parts["k3_products"]})
+              "ms_over_library": ms / lib_ms, "host_ahead": ahead, "unqueued_ms": unqueued_ms,
+              "panels": -(-n // chol_batched.PANEL), "panel_ms": parts["k3_panel"],
+              "update_ms": parts["k3_update"]})
         record["k3"][(nb, n)] = dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=lib_ms)
         del K, L
@@ -461,26 +499,6 @@ def main() -> int:
     # levels sum in another order) and against f64 (cholesky,
     # solve_triangular); the blocks are well conditioned (eigenvalues ≥ 4)
     k5, k6 = mfu_probe.pivots_strip, mfu_probe.tinv_strip
-
-    def queued_ms(fn, reps=50, spin=20_000_000):
-        """CUDA-event ms a call of a kernel shorter than the host's dispatch:
-        a spin kernel of ``spin`` clock cycles holds the stream while the
-        host queues the calls, so the events time them back to back on the
-        device.  Also whether the host finished queueing before the spin
-        ended (else the time includes the host's gaps)."""
-        fn()
-        torch.cuda.synchronize()
-        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        s.record()
-        torch.cuda._sleep(spin)
-        a.record()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        queue_ms = 1e3 * (time.perf_counter() - t0)
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps, queue_ms < s.elapsed_time(a)
 
     record["k5"], record["k6"] = {}, {}
     lower = torch.ones(128, 128, dtype=torch.bool, device=dev).tril()
@@ -1121,17 +1139,6 @@ def main() -> int:
         trils = torch.tril(blocks) + 2.0 * eye32
         S = trils.reshape(-1, 128)
         return (lambda: k6(S)), b, (lambda: torch.linalg.solve_triangular(trils, eye32, upper=False))
-
-    def shape_ms(fn):
-        """queued_ms of 3 to 50 calls, about 50 ms of device time, behind
-        a spin twice as long as the host takes to queue them (at 1.98 GHz)."""
-        est = cuda_ms(fn, 1)
-        t0 = time.perf_counter()
-        fn()
-        host_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        reps = max(3, min(50, int(50.0 / max(est, 1e-3))))
-        return queued_ms(fn, reps, spin=max(20_000_000, int(2.0 * 1.98e9 * reps * host_s)))
 
     by_shape = {}
     for key in wrappers:

@@ -10,84 +10,102 @@
 // independent, so here each is one thread block (gridDim.x = P) and they
 // run at the same time.
 //
-//   micro_cholesky_blocks_f32: the lower factor L of each block (A = L L^T),
-//     exact zeros above the diagonal.  A non-positive pivot gives sqrtf's
-//     NaN (or 1/0's inf), which is not guarded and spreads through the rest
-//     of its block and no other.
-//   tri_inverse_blocks_f32: T = L^-1 of each block from its lower triangle
-//     (the upper triangle is never read), exact zeros above the diagonal.
-//     The strips have no padding rows, so unlike _tri_inverse there is no
-//     guard that turns a zero pivot into 1: a zero pivot gives inf or NaN.
+//   micro_cholesky_blocks_f32 (K5): the lower factor L of each block
+//     (A = L L^T) from its lower triangle, exact zeros above the diagonal.
+//     A non-positive pivot gives sqrtf's NaN (or a division by 0), which is
+//     not guarded and spreads through the rest of its block and no other.
+//   tri_inverse_blocks_f32 (K6): T = L^-1 of each block from its lower
+//     triangle (the upper triangle is never read), exact zeros above the
+//     diagonal.  The strips have no padding rows, so unlike _tri_inverse
+//     there is no guard that turns a zero pivot into 1: a zero pivot gives
+//     inf or NaN.
 //
-// What bounds it on an H100: latency.  Each kernel moves 2 P 128^2 4 bytes
-// (read the strip, write the result: 2.5 us at P = 64 and 3.35 TB/s) and
-// does P 128^3 / 3 flops (0.7 us at P = 64 and the 67 TFLOP/s FP32 rate),
-// but a block's 128 pivots (or 128 rows of a substitution) depend on each
-// other in order, so its time is 128 dependent steps, each behind a barrier
-// or a shared-memory round trip.
+// What bounds them on an H100: latency.  Each kernel moves 2 P 128^2 4
+// bytes (read the strip, write the result: 2.5 us at P = 64 and 3.35 TB/s)
+// and does P 128^3 / 3 flops (0.7 us at P = 64 and the 67 TFLOP/s FP32
+// rate), but a block's 128 pivots (or 128 rows of a substitution) depend on
+// each other in order.  The P blocks run in parallel (up to 132 SMs), so a
+// strip takes about one block's chain, whatever P.
 //
-// What the design does about it: the P blocks run in parallel (up to 132
-// SMs, two blocks an SM), so the strip takes about one block's chain,
-// whatever P.  The factorization keeps its block in dynamic shared memory
-// (128 rows of 129 floats, the pad spreading a column's reads over the
-// banks: 66,048 bytes, above the 48 KB static limit) and is right-looking
-// and unblocked with ONE __syncthreads a pivot step: at step j every
-// thread reads column j (final since the last barrier) and updates only
-// columns > j, so no thread writes what another reads in the same step;
-// the column-j threads write L's column j straight to device memory
-// (scaled, with the zeros above the diagonal).  1024 threads: thread t owns
-// column t % 128 and every 8th row from t / 128, so a warp holds 32
-// neighbouring columns of one row (conflict-free) and the warps of the
-// columns left of the pivot fall idle as j grows.  The pivot's reciprocal
-// is taken once a step (l = a * (1/p) rather than a / p per element).
-// The inverse gives each of 128 threads one column of T by forward
-// substitution from shared memory (the block's L and T, 128 KiB: rows of
-// 128 floats, so that thread c's reads of T[k][c] fall in bank c), with
-// four partial sums a row and an IEEE division by the pivot.  No tensor
-// cores, no TMA: IEEE f32 throughout.  Not yet done: a blocked
-// factorization, or several blocks' chains sharing an SM's warps.
+// What K5's design does about the chain: the block is factored as 4 panels
+// of 32 columns, right-looking (csrc/small_chol.cuh).  For each panel one
+// warp factors the 32x32 diagonal tile in its registers (its 32 pivots pass
+// values by shuffles, with no barrier between them), the next warps solve
+// the up to 96 rows below it one row a lane, and all 256 threads apply
+// the rank-32 update to the trailing lower triangle, 4x4 outputs a
+// thread: three block barriers a panel.
+// The block sits in dynamic shared memory column-major (S[k * 132 + i] =
+// A[i][k], 66 KiB), so a lane reading its row and a warp reading a
+// factor's column both hit distinct banks or broadcasts, and the 4-float
+// pad lets 4x4 transposing copies move the block in and each panel's
+// finished columns out as whole 128-byte rows, without bank conflicts.
+//
+// K6 gives each of 128 threads one column of T by forward substitution
+// from shared memory (the block's L and T, 128 KiB: rows of 128 floats, so
+// that thread c's reads of T[k][c] fall in bank c), with four partial sums
+// a row and an IEEE division by the pivot.  No tensor cores, no TMA: IEEE
+// f32 throughout.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
+#include "small_chol.cuh"
+
 namespace {
 
-constexpr int BS = 128;              // block width; B in pallas_cholesky.py
-constexpr int LDA = BS + 1;          // padded row of the factorization's block
-constexpr int CHOL_THREADS = 1024;
-constexpr int CHOL_ROW_STEP = CHOL_THREADS / BS;  // 8: rows r0, r0 + 8, ...
+using namespace small_chol;
+
+constexpr int BS = 128;        // block width; B in pallas_cholesky.py
+constexpr int LDB = BS + 4;     // column stride of the factorization's block
+constexpr int TW = 32;          // panel width: one warp's tile
+constexpr int CHOL_THREADS = 256;
 constexpr int TINV_THREADS = BS;
-constexpr size_t CHOL_SMEM = (size_t)BS * LDA * sizeof(float);
+constexpr size_t CHOL_SMEM = (size_t)BS * LDB * sizeof(float);
 constexpr size_t TINV_SMEM = 2 * (size_t)BS * BS * sizeof(float);
 
 __global__ void __launch_bounds__(CHOL_THREADS)
 micro_cholesky_blocks_kernel(const float* __restrict__ in, float* __restrict__ out) {
-  extern __shared__ float A[];  // [BS][LDA]
-  const size_t base = (size_t)blockIdx.x * BS * BS;
+  extern __shared__ __align__(16) float chol_smem[];
+  float* S = chol_smem;  // column-major: S[k * LDB + i] = A[i][k]
+  const float* A = in + (size_t)blockIdx.x * BS * BS;
+  float* Lo = out + (size_t)blockIdx.x * BS * BS;
   const int tid = threadIdx.x;
-  for (int e = tid; e < BS * BS; e += CHOL_THREADS) {
-    A[(e / BS) * LDA + e % BS] = in[base + e];
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // this thread's 4x4 blocks: a warp takes 8 neighbouring column groups
+  // and 4 neighbouring row groups (load_4x4_t)
+  const int kg = (lane & 7) + 8 * (warp & 3);
+
+  for (int it = 0; it < 4; ++it) {
+    const int rg = (lane >> 3) + 4 * (warp >> 2) + 8 * it;
+    load_4x4_t<LDB>(S, A, BS, rg, kg);
+    if (kg / 8 > rg / 8)  // right of the diagonal tiles: L's zeros now
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        *reinterpret_cast<float4*>(Lo + (size_t)(4 * rg + u) * BS + 4 * kg) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
   __syncthreads();
 
-  const int c = tid % BS;
-  const int r0 = tid / BS;
-  // first row >= c of this thread's residue class
-  const int i0 = c + ((r0 - c) % CHOL_ROW_STEP + CHOL_ROW_STEP) % CHOL_ROW_STEP;
-  for (int j = 0; j < BS; ++j) {
-    const float p = sqrtf(A[j * LDA + j]);
-    const float rp = 1.0f / p;
-    if (c == j) {
-      for (int i = r0; i < BS; i += CHOL_ROW_STEP) {
-        out[base + (size_t)i * BS + j] = i < j ? 0.0f : (i == j ? p : A[i * LDA + j] * rp);
-      }
-    } else if (c > j) {
-      const float lc = A[c * LDA + j] * rp;
-      for (int i = i0; i < BS; i += CHOL_ROW_STEP) {
-        const float li = A[i * LDA + j] * rp;
-        A[i * LDA + c] -= li * lc;
-      }
+  float x[32];
+  for (int c0 = 0; c0 < BS; c0 += TW) {
+    float* P = S + c0 * LDB;  // the panel's 32 columns
+    if (warp == 0) factor_tile32<LDB>(P + c0, x);
+    __syncthreads();
+    const int r = c0 + TW * warp + lane;  // warps 1, 2, ...: the rows below
+    if (warp > 0 && r < BS) solve_row32<LDB>(P, r, P + c0, x);
+    __syncthreads();
+    // the panel's finished columns to device memory, rows c0..127
+    const int rg = c0 / 4 + (lane >> 3) + 4 * warp;
+    if (rg < BS / 4) store_4x4_t<LDB>(Lo, BS, S, rg, c0 / 4 + (lane & 7), true);
+    // A[i][k] -= sum_m L[i][c0 + m] L[k][c0 + m] over the trailing lower
+    // triangle (rows and columns r0..127), a 4x4 tile a thread
+    const int r0 = c0 + TW;
+    const int t4 = (BS - r0) / 4;
+    for (int e = tid; e < t4 * (t4 + 1) / 2; e += CHOL_THREADS) {
+      int ti, tk;
+      lower_tile(e, ti, tk);
+      update32_4x4<LDB>(S + (size_t)(r0 + 4 * tk) * LDB + r0 + 4 * ti, P + r0 + 4 * ti, P + r0 + 4 * tk);
     }
     __syncthreads();
   }

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  ``nvcc`` compiles it
 for ``sm_90a`` into ``pygpr_torch/_build/lib<name>-<hash>.so`` at first
-use, and ``ctypes`` loads it.  The hash covers the source and the flags,
-so an edited source is rebuilt and a stale library is never loaded.
+use, and ``ctypes`` loads it.  The hash covers the source, every shared
+header ``csrc/*.cuh`` and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.
 Nothing is built when the package is imported: the CPU never needs it.
 """
 
@@ -49,8 +50,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -11,11 +11,13 @@ diagonal.
 On a CUDA tensor :func:`cholesky_batched` launches
 ``csrc/chol_batched.cu`` (f32 only); on a CPU tensor it runs
 :func:`cholesky_batched_plain`, the same right-looking algorithm over
-64-wide panels in torch ops.  n is padded to a multiple of 64 with an
-identity tail, as ``cholesky_pallas`` pads to 128.  Neither version guards
-a non-positive pivot: its NaN fills the rest of that matrix's factor and no
-other, which is the per-matrix signal of the jitter ladder
-(``ops.linalg``).  Neither writes the caller's ``K``.
+64-wide panels in torch ops: each diagonal block factored as 2×2 tiles of
+32 as the kernel's warps do it (``csrc/small_chol.cuh``) and inverted,
+and the rows below it multiplied by the inverse's transpose.  n is padded
+to a multiple of 64 with an identity tail, as ``cholesky_pallas`` pads to
+128.  Neither version guards a non-positive pivot: its NaN fills the rest
+of that matrix's factor and no other, which is the per-matrix signal of
+the jitter ladder (``ops.linalg``).  Neither writes the caller's ``K``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import torch
 
 #: panel width; NB in csrc/chol_batched.cu
 PANEL = 64
+#: the diagonal block's sub-tile: one warp's factorization (csrc/small_chol.cuh)
+TILE = 32
 
 
 def batched_domain(nb: int, n: int) -> bool:
@@ -40,10 +44,10 @@ def _padded(n: int) -> int:
     return max(-(-n // PANEL) * PANEL, PANEL)
 
 
-def _factor_blocks(W: torch.Tensor) -> torch.Tensor:
-    """Unblocked right-looking Cholesky of a stack of diagonal blocks
-    ``[nb, 64, 64]`` (lower triangles), NaN on a non-positive pivot."""
-    A = W.clone()
+def _factor_tile(A: torch.Tensor) -> torch.Tensor:
+    """Unblocked right-looking Cholesky of a stack of tiles ``[nb, w, w]``
+    (lower triangles), NaN on a non-positive pivot: one warp's ``chol32``."""
+    A = A.clone()
     for j in range(A.shape[-1]):
         piv = torch.sqrt(A[:, j, j])
         A[:, j + 1:, j] /= piv[:, None]
@@ -51,6 +55,32 @@ def _factor_blocks(W: torch.Tensor) -> torch.Tensor:
         c = A[:, j + 1:, j]
         A[:, j + 1:, j + 1:] -= c[:, :, None] * c[:, None, :]
     return torch.tril(A)
+
+
+def _solve_rows(B: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """``B D⁻ᵀ`` for ``B`` ``[nb, r, w]`` and a lower factor ``D``
+    ``[nb, w, w]``: forward substitution column by column, right-looking,
+    each column divided by ``D[k, k]`` (the kernel's ``trsm32``, a row a
+    lane).  Elementwise, so a NaN in ``D`` reaches every row."""
+    X = B.clone()
+    for k in range(D.shape[-1]):
+        X[:, :, k] /= D[:, k, k, None]
+        X[:, :, k + 1:] -= X[:, :, k, None] * D[:, None, k + 1:, k]
+    return X
+
+
+def _factor_diag(A: torch.Tensor) -> torch.Tensor:
+    """Factor a stack of diagonal blocks ``[nb, 64, 64]`` (lower triangles
+    read) as 2×2 tiles of 32: ``D00``, ``D10 = A10 D00⁻ᵀ``,
+    ``D11 = chol(A11 − D10 D10ᵀ)``."""
+    D00 = _factor_tile(A[:, :TILE, :TILE])
+    D10 = _solve_rows(A[:, TILE:, :TILE], D00)
+    D11 = _factor_tile(A[:, TILE:, TILE:] - D10 @ D10.mT)
+    D = torch.zeros_like(A)
+    D[:, :TILE, :TILE] = D00
+    D[:, TILE:, :TILE] = D10
+    D[:, TILE:, TILE:] = D11
+    return D
 
 
 def cholesky_batched_plain(K: torch.Tensor) -> torch.Tensor:
@@ -65,7 +95,7 @@ def cholesky_batched_plain(K: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(PANEL, dtype=K.dtype, device=K.device).expand(nb, PANEL, PANEL)
     for lo in range(0, n_pad, PANEL):
         hi = lo + PANEL
-        D = _factor_blocks(W[:, lo:hi, lo:hi])
+        D = _factor_diag(W[:, lo:hi, lo:hi])
         W[:, lo:hi, lo:hi] = D
         if hi < n_pad:
             Dinv = torch.linalg.solve_triangular(D, eye, upper=False)
@@ -110,9 +140,9 @@ def cholesky_batched_cuda(K: torch.Tensor) -> torch.Tensor:
     n_pad = _padded(n)
     opts = dict(dtype=torch.float32, device=K.device)
     L = torch.empty((nb, n_pad, n_pad), **opts)
-    Dinv = torch.empty((nb, PANEL, PANEL), **opts)
+    diag = torch.empty((nb, PANEL, PANEL), **opts)  # the next diagonal block
     stream = torch.cuda.current_stream(K.device).cuda_stream
-    err = fn(K.data_ptr(), L.data_ptr(), Dinv.data_ptr(), nb, n, n_pad, stream)
+    err = fn(K.data_ptr(), L.data_ptr(), diag.data_ptr(), nb, n, n_pad, stream)
     if err != 0:
         raise RuntimeError(f"chol_batched kernel launch failed: CUDA error {err}")
     cholesky_batched_cuda.launches += 1

@@ -137,3 +137,18 @@ def test_f32_ladder_escalates_each_matrix_on_its_own(rng):
     np.testing.assert_array_equal(got.ok.numpy(), [1.0, 1.0, 1.0])
     want = np.linalg.cholesky(linalg.add_diag(K, got.jitter.double()).numpy())
     np.testing.assert_allclose(got.chol.numpy(), want, atol=2e-4 * 30)
+
+
+def test_plain_diag_block_in_two_tiles(rng):
+    """The plain version's 64-wide diagonal block, factored as 2×2 tiles of
+    32 (D00, D10 = A10 D00⁻ᵀ by substitution, A11 − D10 D10ᵀ, D11), in
+    f64: the Cholesky factor to round-off, and ``B D⁻ᵀ`` by the
+    substitution it uses for D10."""
+    A = _spd(rng, (2, 64, 64))
+    B = rng.standard_normal((2, 96, 32))
+    D = chol_batched._factor_diag(torch.tensor(A))
+    np.testing.assert_allclose(D.numpy(), np.linalg.cholesky(A), rtol=1e-12, atol=1e-12)
+    D00 = D[:, :32, :32]
+    X = chol_batched._solve_rows(torch.tensor(B), D00).numpy()
+    want = np.linalg.solve(D00.numpy(), np.swapaxes(B, -1, -2)).swapaxes(-1, -2)
+    np.testing.assert_allclose(X, want, rtol=1e-10, atol=1e-12)

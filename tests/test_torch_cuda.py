@@ -88,7 +88,7 @@ def _spd_stack(nb, n, dev, seed=0):
     return torch.stack([gram.rbf_noise_gram_plain(p, torch.tensor(xi, device=dev)) for xi in x])
 
 
-@pytest.mark.parametrize("shape", [(300, 300), (4, 512, 512)])
+@pytest.mark.parametrize("shape", [(300, 300), (4, 512, 512), (1024, 1024), (1000, 1000)])
 def test_chol_batched_kernel_matches_plain_and_f64(shape, dev):
     """K3 against its plain version (1e-3 of max|L|: the same algorithm,
     another summation order) and f64 (‖L−L64‖F ≤ 1e-3 ‖L64‖F)."""
@@ -115,6 +115,34 @@ def test_chol_batched_kernel_nan_stays_in_its_matrix(dev):
     assert torch.isnan(L[2][lower]).all()
     for i in (0, 1, 3):
         assert torch.equal(L[i], chol_batched.cholesky_batched_cuda(K[i].contiguous()))
+
+
+def test_chol_batched_stack_members_equal_their_factors_alone(dev):
+    """Each member of a [16, 768, 768] stack (cholesky_pallas_batched's
+    domain) bit-equal to the same matrix factored alone (cholesky_pallas's):
+    a matrix's arithmetic depends neither on nb nor on the route."""
+    K = _spd_stack(16, 768, dev, seed=1)
+    L = chol_batched.cholesky_batched_cuda(K)
+    torch.cuda.synchronize()
+    assert torch.isfinite(L).all()
+    for i in range(16):
+        assert torch.equal(L[i], chol_batched.cholesky_batched_cuda(K[i].contiguous()))
+
+
+def test_chol_batched_kernel_single_indefinite_gives_nan(dev):
+    """One [1024, 1024] with a negative diagonal entry at 500 (inside a
+    panel's second 32-wide tile): columns before it stay finite and equal
+    the f64 factor of the leading block, and every entry of the lower
+    triangle from column 500 on is NaN."""
+    K = _spd_stack(1, 1024, dev, seed=2)[0]
+    K[500, 500] = -1.0
+    L = chol_batched.cholesky_batched_cuda(K)
+    torch.cuda.synchronize()
+    assert torch.isfinite(L[:, :500]).all()
+    lower = torch.ones(524, 524, dtype=torch.bool, device=dev).tril()
+    assert torch.isnan(L[500:, 500:][lower]).all()
+    L64 = torch.linalg.cholesky(K[:500, :500].double())
+    assert torch.linalg.norm(L[:500, :500].double() - L64) <= 1e-3 * torch.linalg.norm(L64)
 
 
 def test_chol_batched_wrapper_raises_on_what_the_kernel_does_not_take(dev):
@@ -214,7 +242,7 @@ def _block_strips(P, dev, seed=0):
     return blocks, torch.tril(blocks) + 2.0 * torch.eye(128, device=dev)
 
 
-@pytest.mark.parametrize("P", [2, 16])
+@pytest.mark.parametrize("P", [2, 16, 64])
 def test_block_probe_kernels_match_plain_and_f64(P, dev):
     """B7 and B8 against their plain versions and f64 on the card, within
     1e-5 of the largest entry (about 40 ulps: f32 sums of up to 128 terms
