@@ -6,15 +6,17 @@
 Builds the hand-written CUDA kernels from ``pygpr_torch/csrc`` with nvcc
 (K1 gram, K2 fused Cholesky + inverse, K3 batched Cholesky, K4 fused
 gram-matvec, K5 and K6 the stage probe's per-block Cholesky and triangular
-inverse), holds each against its plain PyTorch version on the card,
+inverse), holds each against its plain PyTorch version on the card (K2
+also timed beside the library pair that gives the same L and L⁻¹),
 drives the port's exact-GP path (NLML value + fast gradient at
 n = 2048..16384, then an L-BFGS fit, factorize and predict at n = 4096),
 its grBCM committee path (train, factorize and serve at 16 experts of 512
 points, then fit, factorize and predict at 16 experts of 6144 points, held
 against f64 on the card), its matrix-free iterative GP (the Krylov NLML,
 an Adam fit and CG predictions at n = 32768, held against f64 and the dense
-NLML on the card, then one evaluation at n = 131072, where the dense path
-cannot run), the stage probe (``pygpr_torch.bench.mfu_probe`` at n = 2048
+NLML on the card, its f32 gaps at n = 8192 beside the JAX package's, then
+one evaluation at n = 131072, where the dense path cannot run), the stage
+probe (``pygpr_torch.bench.mfu_probe`` at n = 2048
 and 8192) and every entry of ``pygpr_torch.bench`` at its defaults, and
 prints one JSON object per phase.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
@@ -81,6 +83,14 @@ ITER_DENSE_REL, ITER_DENSE_ABS = 0.02, 1.0
 #: variance: it catches gross faults only
 ITER_VAR_METHOD_GAP = 0.2
 ITER_VAR_GAP = 0.95
+#: the JAX package's own f32-against-f64 gaps of the iterative GP at
+#: n = 8192 on the CPU (XLA path; the bench's settings and the data and
+#: probes of `JAX_PLATFORMS=cpu PYTHONPATH=. python
+#: tests/test_torch_iterative.py`, which prints them beside the port's):
+#: the estimator's value and gradient and the predictive variance's latent
+#: part over 512 queries, relative in norm
+JAX_ITER_GAPS_8192 = {"rel_value": 7.331060892041878e-06, "rel_grad": 0.00859036635353799,
+                      "latent_var": 0.024222764475522893}
 #: peak device memory of one evaluation at n = 131072, whose f32 gram
 #: alone would be 64 GiB
 ITER_PEAK_BYTES = 2 * 2**30
@@ -158,7 +168,7 @@ def main() -> int:
     from pygpr_torch import bench
     from pygpr_torch.bench import mfu_probe
     from pygpr_torch.models import exact_gp, grbcm, iterative, likelihood, metrics, sgpr
-    from pygpr_torch.ops import _build, chol_batched, chol_inverse, gram, matvec
+    from pygpr_torch.ops import _build, chol_batched, chol_inverse, gram, linalg, matvec
 
     dev = torch.device("cuda")
     failures = []
@@ -217,18 +227,20 @@ def main() -> int:
 
     def device_ms(fn):
         """Device time (ms) of one call of ``fn`` by group of kernels, from
-        torch.profiler: K1, K2's one-block diagonal factorizations (its
-        pivot chain), K2's products, K3's panel launches (each block
-        factors the diagonal block with warps and solves its rows below
-        it: K3's pivot chain), K3's trailing updates and its load, K4, and
-        every other kernel ("torch")."""
+        torch.profiler: K1, K2's panel launches (the rows below each
+        diagonal block and T's band; at the first panel also its
+        factorization), K2's trailing updates and its zeros (its products;
+        the update's first block also factors and inverts the next diagonal
+        block, beside the other tiles), K3's panel launches (K3's pivot
+        chain), K3's trailing updates and its load, K4, and every other
+        kernel ("torch")."""
         from torch.profiler import ProfilerActivity, profile
 
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        groups = {"k1": 0.0, "k2_pivot_chain": 0.0, "k2_products": 0.0, "k3_panel": 0.0,
+        groups = {"k1": 0.0, "k2_panel": 0.0, "k2_update": 0.0, "k3_panel": 0.0,
                   "k3_update": 0.0, "k4": 0.0, "torch": 0.0}
         for e in prof.key_averages():
             us = getattr(e, "device_time_total", None)
@@ -241,10 +253,10 @@ def main() -> int:
                 groups["k3_panel"] += us
             elif "chol_batched_" in e.key:
                 groups["k3_update"] += us
-            elif "diag_block_kernel" in e.key:
-                groups["k2_pivot_chain"] += us
-            elif any(k in e.key for k in ("gemm_kernel", "splitk_reduce_kernel", "zero_upper_kernel")):
-                groups["k2_products"] += us
+            elif "chol_inverse_panel_kernel" in e.key:
+                groups["k2_panel"] += us
+            elif "chol_inverse_" in e.key:
+                groups["k2_update"] += us
             else:
                 groups["torch"] += us
         out = {k: v / 1e3 for k, v in groups.items()}
@@ -298,8 +310,17 @@ def main() -> int:
     # (f32 round-off times cond(K), measured ≤ 1.4e-4 and ≤ 2e-5 at these
     # inputs); against the plain version, max-abs difference ≤ 1e-3 of
     # max|L| and of max|T| (same algorithm, other summation order).
-    # n = 6400 is the streamed committee fit's (bench_large_n)
-    for n in (256, 2048, 6400, 8192):
+    # Every n the main path gives K2: 256 and 2048 (the flagship and the
+    # committees' global expert), 4096 (the fit), 6400 (the streamed
+    # committee fit, bench_large_n), 8192 and 16384 (the flagship).  Beside
+    # each, the pair of library calls that gives the same (L, T):
+    # cholesky_ex and the block-doubling inverse (the stage probe's library
+    # route), timed only
+    def library_pair(K):
+        L, _ = torch.linalg.cholesky_ex(K)
+        return L, linalg.tri_inverse_doubling(L)
+
+    for n in (256, 2048, 4096, 6400, 8192, 16384):
         xn, _, pn = make_data(n)
         x, p = to_dev(xn, pn)
         K = gram.rbf_noise_gram_plain(p, x)
@@ -319,8 +340,10 @@ def main() -> int:
         rel_pl = err_l / L.abs().max().item()
         rel_pt = err_t / T.abs().max().item()
         del Lp, Tp
-        ms = cuda_ms(lambda: chol_inverse.cholesky_inverse_cuda(K), 3 if n >= 6400 else 10)
-        lib_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(K), 5)
+        reps = 2 if n >= 16384 else 3 if n >= 6400 else 10
+        ms = cuda_ms(lambda: chol_inverse.cholesky_inverse_cuda(K), reps)
+        lib_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(K), reps)
+        pair_ms = cuda_ms(lambda: library_pair(K), reps)
         parts = device_ms(lambda: chol_inverse.cholesky_inverse_cuda(K))
         panels = n // chol_inverse.PANEL
         b_ms, b_by = bound_ms(12.0 * n * n, (2.0 / 3.0) * n**3)
@@ -330,16 +353,18 @@ def main() -> int:
             check("k2", f"n={n} upper triangles not zero", zeros),
             check("k2", f"n={n} vs plain L {rel_pl}", rel_pl <= 1e-3),
             check("k2", f"n={n} vs plain T {rel_pt}", rel_pt <= 1e-3),
+            check("k2", f"n={n} a K2 group read no device time {parts}",
+                  min(parts["k2_panel"], parts["k2_update"]) > 0),
         ])
         emit({"phase": "k2_cholesky_inverse", "n": n, "rel_err_L_vs_f64": rel_l,
               "max_abs_TL_minus_I": tl, "upper_zero": zeros, "max_abs_err_L_vs_plain": err_l,
               "max_abs_err_T_vs_plain": err_t, "ok": ok, "ms": ms, "plain_ms": plain_ms,
-              "bound_ms": b_ms, "bound_by": b_by, "library_ms_cholesky_ex": lib_ms,
-              "panels": panels, "pivot_chain_ms": parts["k2_pivot_chain"],
-              "pivot_block_us": 1e3 * parts["k2_pivot_chain"] / panels,
-              "products_ms": parts["k2_products"]})
+              "bound_ms": b_ms, "bound_by": b_by, "library_ms_cholesky_ex": lib_ms, "library_pair_ms": pair_ms,
+              "panels": panels, "panel_ms": parts["k2_panel"], "panel_us_each": 1e3 * parts["k2_panel"] / panels,
+              "update_ms": parts["k2_update"],
+              "update_tflops": (2.0 / 3.0) * n**3 / (parts["k2_update"] * 1e9) if parts["k2_update"] else None})
         record.setdefault("k2", {})[n] = dict(n=n, max_abs_err=err_l, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                              bound_by=b_by, library_ms=lib_ms)
+                                              bound_by=b_by, library_ms=lib_ms, library_pair_ms=pair_ms)
         del K, L, T
     L, _ = chol_inverse.cholesky_inverse_cuda(-torch.eye(256, device=dev))
     indef_nan = not bool(torch.isfinite(L).all())
@@ -618,6 +643,8 @@ def main() -> int:
         c = read_counts()
         ok = all([ok, check("nlml", f"n={n} kernels not launched {c}", min(c["k1"], c["k2"]) > 0)])
         parts = device_ms(lambda: gp.nlml_value_and_grad(cov, p, x, y))
+        ok = all([ok, check("nlml", f"n={n} a K2 group read no device time {parts}",
+                            min(parts["k2_panel"], parts["k2_update"]) > 0)])
         out.update(ok=ok, ms_per_eval=1e3 * s, evals_per_s=1.0 / s,
                    tflops=eval_flops(n) / s / 1e12, launches_k1=c["k1"], launches_k2=c["k2"],
                    device_ms=parts, idle_share=1.0 - parts["all"] / (1e3 * s))
@@ -963,6 +990,52 @@ def main() -> int:
     del x, y, z
     torch.cuda.empty_cache()
 
+    # 8c. the iterative GP's f32 gaps at n = 8192, like for like with the
+    # JAX package's own on the CPU (ROADMAP §C, C2): the data, probes and
+    # settings of `tests/test_torch_iterative.py`'s script mode (its
+    # generator in f64, cast to f32; the bench's solver settings), one
+    # evaluation and 512 variance queries by K4 in f32, against the same
+    # estimator and prediction in f64 on the card, and the blocked torch
+    # path in f32 (cuBLAS, no TF32) beside it.  The JAX package's gaps at
+    # this n (XLA on the CPU) are printed beside the port's
+    n = 8192
+    rng8 = np.random.default_rng(0)
+    x8 = rng8.uniform(0, 4, (n, 2))
+    y8 = np.sin(2.0 * x8.sum(-1)) + 0.1 * rng8.normal(size=n)
+    xq8 = rng8.uniform(0, 4, (512, 2))
+    inputs8 = (np.array([1.0, 1.0, 1.0, 0.1]), x8, y8, iterative.make_probes(n, 8, 0), xq8)
+    p8, x8, y8, z8, xq8 = to_dev(*inputs8)
+    zero_counts()
+    v32, g32 = iterative.nlml_value_and_grad(rbf, p8, x8, y8, z8, **ITERATIVE)
+    _, var32 = iterative.predict(rbf, p8, x8, y8, xq8, var="diag", **solver)
+    k4_8192 = k4.launches
+    zero_counts()
+    vb, gb = iterative.nlml_value_and_grad(blocked_rbf, p8, x8, y8, z8, **ITERATIVE)
+    _, varb = iterative.predict(blocked_rbf, p8, x8, y8, xq8, var="diag", **solver)
+    p64_8, x64_8, y64_8, z64_8, xq64_8 = to_dev(*inputs8, dtype=torch.float64)
+    v64, g64 = iterative.nlml_value_and_grad(rbf, p64_8, x64_8, y64_8, z64_8, **ITERATIVE)
+    _, var64 = iterative.predict(rbf, p64_8, x64_8, y64_8, xq64_8, var="diag", **solver)
+    lat = {k: v.double() - p64_8[-1] ** 2 - gp.DEFAULT.jitter for k, v in (("k4", var32), ("blocked", varb), ("f64", var64))}
+    gaps8 = {route: {"rel_value": abs(v.item() - v64.item()) / abs(v64.item()),
+                     "rel_grad": (torch.linalg.norm(g.double() - g64) / torch.linalg.norm(g64)).item(),
+                     "latent_var": rel(lat[route], lat["f64"])}
+             for route, v, g in (("k4", v32, g32), ("blocked", vb, gb))}
+    ok = all([
+        check("iterative_n8192", "value, gradient or variance not finite",
+              bool(torch.isfinite(v32) and torch.isfinite(g32).all() and torch.isfinite(var32).all())),
+        check("iterative_n8192", f"K4 not launched ({k4_8192})", k4_8192 > 0),
+        check("iterative_n8192", f"f32 value {gaps8['k4']['rel_value']} from f64 > {ITER_VALUE_GAP}",
+              gaps8["k4"]["rel_value"] <= ITER_VALUE_GAP),
+        check("iterative_n8192", f"f32 gradient {gaps8['k4']['rel_grad']} from f64 > {ITER_GRAD_GAP}",
+              gaps8["k4"]["rel_grad"] <= ITER_GRAD_GAP),
+        check("iterative_n8192", f"f32 latent variance {gaps8['k4']['latent_var']} from f64 > {ITER_VAR_GAP}",
+              gaps8["k4"]["latent_var"] <= ITER_VAR_GAP),
+    ])
+    emit({"phase": "iterative_n8192_gaps", "n": n, **ITERATIVE, "var_queries": 512, "launches_k4": k4_8192,
+          "value_f64": v64.item(), "gaps_vs_f64": gaps8, "jax_cpu_gaps": JAX_ITER_GAPS_8192, "ok": ok})
+    del p8, x8, y8, z8, xq8, p64_8, x64_8, y64_8, z64_8, xq64_8, var32, varb, var64, lat
+    torch.cuda.empty_cache()
+
     # -- 9. the stage probe (pygpr_torch.bench.mfu_probe) ----------------------
     # its nine stage lines at n = 2048 and 8192, printed by the probe itself,
     # then one phase line each; B7 and B8 run on the main path only here.
@@ -1108,48 +1181,54 @@ def main() -> int:
 
     def shape_case(key, shape):
         """(the kernel's call, (bound_ms, bound_by), the library call or
-        None) on fresh inputs of ``shape``."""
+        None, for K2 the library pair (cholesky_ex + tri_inverse_doubling)
+        or None) on fresh inputs of ``shape``."""
         if key == "k1":
             n, d = shape
             x, p = to_dev(srng.uniform(0.0, 2.0, (n, d)).astype(np.float32), np.r_[np.ones(d + 1), 0.1].astype(np.float32))
-            return (lambda: k1(p, x)), bound_ms(4.0 * (n * n + n * d + d + 2), n * n * (3.0 * d + 3)), None
+            return (lambda: k1(p, x)), bound_ms(4.0 * (n * n + n * d + d + 2), n * n * (3.0 * d + 3)), None, None
         if key == "k2":
             (n,) = shape
             xn, _, pn = make_data(n)
             K = gram.rbf_noise_gram_plain(*to_dev(pn, xn))
-            return (lambda: k2(K)), bound_ms(12.0 * n * n, (2.0 / 3.0) * n**3), (lambda: torch.linalg.cholesky_ex(K))
+            return ((lambda: k2(K)), bound_ms(12.0 * n * n, (2.0 / 3.0) * n**3), (lambda: torch.linalg.cholesky_ex(K)),
+                    (lambda: library_pair(K)))
         if key == "k3":
             nb, n = shape
             K = committee_grams(nb, n)
             K = K[0] if nb == 1 else K
-            return (lambda: k3(K)), bound_ms(8.0 * nb * n * n, nb * n**3 / 3.0), (lambda: torch.linalg.cholesky_ex(K))
+            return ((lambda: k3(K)), bound_ms(8.0 * nb * n * n, nb * n**3 / 3.0), (lambda: torch.linalg.cholesky_ex(K)),
+                    None)
         if key == "k4":
             n, d, k = shape
             x, v, th = to_dev(srng.uniform(0.0, 4.0, (n, d)).astype(np.float32),
                               srng.standard_normal((n, k)).astype(np.float32), np.ones(d + 1, np.float32))
             return ((lambda: k4(th, x, v)), bound_ms(4.0 * (n * d + d + 1 + 2 * n * k), 2.0 * n * n * (d + k), float(n) * n),
-                    None)
+                    None, None)
         (P,) = shape
         (A,) = to_dev(srng.standard_normal((P, 128, 128)).astype(np.float32))
         blocks = A @ A.mT / 128 + 4.0 * eye32
         b = bound_ms(2.0 * P * 128 * 128 * 4, P * 128**3 / 3.0)
         if key == "k5":
             S = blocks.reshape(-1, 128)
-            return (lambda: k5(S)), b, (lambda: torch.linalg.cholesky_ex(blocks))
+            return (lambda: k5(S)), b, (lambda: torch.linalg.cholesky_ex(blocks)), None
         trils = torch.tril(blocks) + 2.0 * eye32
         S = trils.reshape(-1, 128)
-        return (lambda: k6(S)), b, (lambda: torch.linalg.solve_triangular(trils, eye32, upper=False))
+        return (lambda: k6(S)), b, (lambda: torch.linalg.solve_triangular(trils, eye32, upper=False)), None
 
     by_shape = {}
     for key in wrappers:
         rows = []
         for shape, launches in sorted(shape_totals[key].items()):
-            call, (b_ms, b_by), library = shape_case(key, shape)
+            call, (b_ms, b_by), library, pair = shape_case(key, shape)
             ms, ahead = shape_ms(call)
             lib_ms = shape_ms(library)[0] if library is not None else None
-            rows.append(dict(shape=list(shape), launches=launches, ms=ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=lib_ms, host_ahead=ahead))
-            del call, library
+            row = dict(shape=list(shape), launches=launches, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms, host_ahead=ahead)
+            if pair is not None:
+                row["library_pair_ms"] = shape_ms(pair)[0]
+            rows.append(row)
+            del call, library, pair
             torch.cuda.empty_cache()
         by_shape[key] = rows
         emit({"phase": "main_path_by_shape", "kernel": key, "shapes": rows,
@@ -1161,11 +1240,14 @@ def main() -> int:
         loss ms, and the library calls' ms where every shape has one."""
         rows = [r for r in by_shape[key] if keep(r["shape"])]
         lib = [r["library_ms"] for r in rows]
-        return {"launches": sum(r["launches"] for r in rows),
-                "main_path_device_ms": sum(r["launches"] * r["ms"] for r in rows),
-                "main_path_loss_ms": sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows),
-                "main_path_library_ms": (sum(r["launches"] * m for r, m in zip(rows, lib))
-                                         if rows and None not in lib else None)}
+        out = {"launches": sum(r["launches"] for r in rows),
+               "main_path_device_ms": sum(r["launches"] * r["ms"] for r in rows),
+               "main_path_loss_ms": sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows),
+               "main_path_library_ms": (sum(r["launches"] * m for r, m in zip(rows, lib))
+                                        if rows and None not in lib else None)}
+        if rows and all("library_pair_ms" in r for r in rows):
+            out["main_path_library_pair_ms"] = sum(r["launches"] * r["library_pair_ms"] for r in rows)
+        return out
 
     share = {
         "B1": main_path("k1"),
@@ -1201,6 +1283,8 @@ def main() -> int:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "library_call": "torch.linalg.cholesky_ex: L alone, half the kernel's work (no one call gives L and L^-1)",
+                "library_pair_ms": r["library_pair_ms"],
+                "library_pair": "torch.linalg.cholesky_ex + ops.linalg.tri_inverse_doubling: the same (L, T)",
                 "n": r["n"], "ok": k2_ok}
 
     def probe_line(name, replaces, launches, r, ok):

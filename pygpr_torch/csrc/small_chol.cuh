@@ -1,5 +1,6 @@
-// Warp-level building blocks for the small dense factorizations of K3
-// (chol_batched.cu) and K5 (block_probe.cu), f32, for sm_90a.
+// Warp-level building blocks for the small dense factorizations of K2
+// (chol_inverse.cu), K3 (chol_batched.cu) and K5 (block_probe.cu), f32, for
+// sm_90a.
 //
 // A 32x32 tile is factored by ONE warp in its registers (chol32), so its
 // 32 pivots pass values by shuffles and wait on no block barrier (about
@@ -65,6 +66,27 @@ __device__ __forceinline__ void trsm32(float (&x)[32], const float* D) {
 #pragma unroll
   for (int k = 0; k < 32; ++k) {
     x[k] = x[k] / D[k * LD + k];
+#pragma unroll
+    for (int m4 = (k + 1) & ~3; m4 < 32; m4 += 4) {
+      const float4 d = *reinterpret_cast<const float4*>(D + k * LD + m4);
+      if (m4 + 0 > k) x[m4 + 0] = fmaf(-d.x, x[k], x[m4 + 0]);
+      if (m4 + 1 > k) x[m4 + 1] = fmaf(-d.y, x[k], x[m4 + 1]);
+      if (m4 + 2 > k) x[m4 + 2] = fmaf(-d.z, x[k], x[m4 + 2]);
+      if (m4 + 3 > k) x[m4 + 3] = fmaf(-d.w, x[k], x[m4 + 3]);
+    }
+  }
+}
+
+// trsm32 with the reciprocals of D's diagonal given, rcp[k] = 1 / D[k][k]
+// (read as broadcasts): each step multiplies where trsm32 divides, which
+// takes the IEEE division off the chain of 32 dependent steps, at the cost
+// of one more rounding an entry a step.  A NaN or infinite reciprocal
+// spreads as trsm32's quotient does.
+template <int LD>
+__device__ __forceinline__ void trsm32_rcp(float (&x)[32], const float* D, const float* rcp) {
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    x[k] = x[k] * rcp[k];
 #pragma unroll
     for (int m4 = (k + 1) & ~3; m4 < 32; m4 += 4) {
       const float4 d = *reinterpret_cast<const float4*>(D + k * LD + m4);

@@ -7,10 +7,13 @@ above the diagonal, for the fast NLML gradient (``K⁻¹ = TᵀT``).
 
 On a CUDA tensor :func:`cholesky_inverse` launches ``csrc/chol_inverse.cu``
 (f32 only); on a CPU tensor it runs :func:`cholesky_inverse_plain`, the
-same left-looking algorithm over 64-wide panels in torch ops.  Neither
-guards a non-positive pivot: its NaN spreads through the rest of the
-factor, which is the jitter ladder's signal (``ops.linalg``).  Neither
-writes the caller's ``K``.
+same right-looking sweep over 128-wide panels in torch ops, with the
+kernel's blocking: each diagonal block factored and inverted as tiles of
+32, the rows below it and T's band by products with its inverse, and each
+panel's rank-128 products subtracted from the trailing matrix and from the
+right-hand side of L T = I in panel order.  Neither guards a non-positive
+pivot: its NaN spreads through the rest of the factor, which is the jitter
+ladder's signal (``ops.linalg``).  Neither writes the caller's ``K``.
 """
 
 from __future__ import annotations
@@ -22,9 +25,9 @@ from typing import Tuple
 import torch
 
 #: panel width; NB in csrc/chol_inverse.cu
-PANEL = 64
-#: most k-splits of one left-looking product (sizes the scratch)
-MAX_SPLITS = 16
+PANEL = 128
+#: the diagonal block's tiles; TW in csrc/chol_inverse.cu
+TILE = 32
 #: largest n of ``cholesky_inverse_pallas``; the JAX package hands a larger
 #: n to ``cholesky_inverse_pallas_rolled``
 MAX_FUSED_N = 5632
@@ -38,8 +41,8 @@ def takes(K: torch.Tensor) -> bool:
 
 
 def _factor_block(W: torch.Tensor) -> torch.Tensor:
-    """Unblocked right-looking Cholesky of a diagonal block, NaN on a
-    non-positive pivot (the kernel's one-block loop)."""
+    """Unblocked right-looking Cholesky of a diagonal tile, NaN on a
+    non-positive pivot (one warp's ``chol32``)."""
     A = W.clone()
     nb = A.shape[0]
     for j in range(nb):
@@ -51,27 +54,59 @@ def _factor_block(W: torch.Tensor) -> torch.Tensor:
     return torch.tril(A)
 
 
+def _factor_diag(A: torch.Tensor) -> torch.Tensor:
+    """D with A = D Dᵀ for the lower triangle of a diagonal block, as tiles
+    of 32: factor a tile, solve the rows below it, subtract their rank-32
+    product from the rest."""
+    D = A.clone()
+    nb = D.shape[0]
+    for t in range(0, nb, TILE):
+        e = t + TILE
+        D[t:e, t:e] = _factor_block(D[t:e, t:e])
+        if e < nb:
+            D[e:, t:e] = torch.linalg.solve_triangular(D[t:e, t:e], D[e:, t:e].mT, upper=False).mT
+            D[e:, e:] -= D[e:, t:e] @ D[e:, t:e].mT
+    return torch.tril(D)
+
+
+def _invert_diag(D: torch.Tensor) -> torch.Tensor:
+    """X = D⁻¹ by recursive halving down to tiles of 32, each tile by a
+    triangular solve: X = [[X₀, 0], [−X₁ (D₁₀ X₀), X₁]]."""
+    nb = D.shape[0]
+    if nb == TILE:
+        return torch.linalg.solve_triangular(D, torch.eye(TILE, dtype=D.dtype, device=D.device), upper=False)
+    h = nb // 2
+    X0 = _invert_diag(D[:h, :h])
+    X1 = _invert_diag(D[h:, h:])
+    X = torch.zeros_like(D)
+    X[:h, :h] = X0
+    X[h:, h:] = X1
+    X[h:, :h] = -(X1 @ (D[h:, :h] @ X0))
+    return X
+
+
 def cholesky_inverse_plain(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's algorithm in torch ops, on any device and dtype."""
     n = K.shape[-1]
+    A = K.clone()  # the trailing matrix; the kernel keeps it in L's storage
     L = torch.zeros_like(K)
-    T = torch.zeros_like(K)
-    eye = torch.eye(PANEL, dtype=K.dtype, device=K.device)
+    T = torch.zeros_like(K)  # below the diagonal blocks: B, the right-hand side of L T = I
     for lo in range(0, n, PANEL):
         hi = lo + PANEL
-        # the update subtracts short k-chunks from K, in order, as the
-        # kernel's split-k does: one long f32 sum would swamp its small
-        # late terms and bias the pivots
-        W = K[lo:, lo:hi].clone()
-        for c in range(0, lo, PANEL):
-            W -= L[lo:, c:c + PANEL] @ L[lo:hi, c:c + PANEL].T
-        D = _factor_block(W[:PANEL])
-        Dinv = torch.linalg.solve_triangular(D, eye, upper=False)
+        D = _factor_diag(A[lo:hi, lo:hi])
+        X = _invert_diag(D)
         L[lo:hi, lo:hi] = D
-        T[lo:hi, lo:hi] = Dinv
-        L[hi:, lo:hi] = W[PANEL:] @ Dinv.T
+        T[lo:hi, lo:hi] = X
         if lo:
-            T[lo:hi, :lo] = -(Dinv @ (L[lo:hi, :lo] @ T[:lo, :lo]))
+            T[lo:hi, :lo] = X @ T[lo:hi, :lo]
+        if hi < n:
+            # the panel's rank-128 products are subtracted in panel order:
+            # one long f32 sum would swamp its small late terms and bias
+            # the pivots
+            P = A[hi:, lo:hi] @ X.mT
+            L[hi:, lo:hi] = P
+            A[hi:, hi:] -= P @ P.mT
+            T[hi:, :hi] -= P @ T[lo:hi, :hi]
     return L, T
 
 
@@ -80,7 +115,7 @@ def _lib():
 
     lib = _build.load("chol_inverse")
     fn = lib.chol_inverse_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -104,14 +139,9 @@ def cholesky_inverse_cuda(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     opts = dict(dtype=torch.float32, device=K.device)
     L = torch.empty((n, n), **opts)
     T = torch.empty((n, n), **opts)
-    W = torch.empty((n, PANEL), **opts)
-    X = torch.empty((PANEL, n), **opts)
-    P = torch.empty((MAX_SPLITS * n * PANEL,), **opts)
+    P = torch.empty((PANEL, n), **opts)
     stream = torch.cuda.current_stream(K.device).cuda_stream
-    err = fn(
-        K.data_ptr(), L.data_ptr(), T.data_ptr(), W.data_ptr(), X.data_ptr(),
-        P.data_ptr(), P.numel(), n, stream,
-    )
+    err = fn(K.data_ptr(), L.data_ptr(), T.data_ptr(), P.data_ptr(), n, stream)
     if err != 0:
         raise RuntimeError(f"chol_inverse kernel launch failed: CUDA error {err}")
     cholesky_inverse_cuda.launches += 1

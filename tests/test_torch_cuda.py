@@ -43,7 +43,7 @@ def test_gram_kernel_matches_plain(n, d, dev):
     assert (K - gram.rbf_noise_gram_plain(pt, xt)).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("n", [256, 384, 1024])
+@pytest.mark.parametrize("n", [256, 384, 640, 1024])
 def test_chol_inverse_kernel_matches_plain_and_f64(n, dev):
     x, _, p = _data(n)
     K = gram.rbf_noise_gram_plain(torch.tensor(p, device=dev), torch.tensor(x, device=dev))
@@ -63,6 +63,33 @@ def test_chol_inverse_kernel_matches_plain_and_f64(n, dev):
 def test_chol_inverse_kernel_indefinite_gives_nan(dev):
     L, _ = chol_inverse.cholesky_inverse_cuda(-torch.eye(256, device=dev))
     assert not torch.isfinite(L).all()
+
+
+@pytest.mark.parametrize("p", [20, 300])
+def test_chol_inverse_kernel_nan_from_first_negative_pivot(p, dev):
+    """The first non-positive pivot p, in the first 32 pivots or in a later
+    panel: L is finite left of column p and NaN on and below the diagonal
+    from p on; the caller's K is not written."""
+    n = 512
+    x, _, prm = _data(n)
+    K = gram.rbf_noise_gram_plain(torch.tensor(prm, device=dev), torch.tensor(x, device=dev))
+    K[p, p] = -1.0
+    K0 = K.clone()
+    L, _ = chol_inverse.cholesky_inverse_cuda(K)
+    torch.cuda.synchronize()
+    assert torch.equal(K, K0)
+    assert torch.isfinite(L[:, :p]).all()
+    rows, cols = torch.tril_indices(n - p, n - p, device=dev)
+    assert torch.isnan(L[p:, p:][rows, cols]).all()
+
+
+def test_chol_inverse_kernel_repeats_bit_equal(dev):
+    """No atomics: two calls on the same K give the same bits."""
+    x, _, p = _data(2048)
+    K = gram.rbf_noise_gram_plain(torch.tensor(p, device=dev), torch.tensor(x, device=dev))
+    L1, T1 = chol_inverse.cholesky_inverse_cuda(K)
+    L2, T2 = chol_inverse.cholesky_inverse_cuda(K)
+    assert torch.equal(L1, L2) and torch.equal(T1, T2)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

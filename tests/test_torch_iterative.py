@@ -9,7 +9,9 @@ path, so the two agree to round-off.
 
 Run as a script, the file measures the JAX package's own f32-against-f64
 gaps on the CPU (XLA path), the yardsticks of the card's checks in
-``chip_smoke.py``:
+``chip_smoke.py``, and beside them the port's own gaps on the CPU at the
+same n, data, probes and settings (its f32 path there is K4's plain
+version, the card's comparison):
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_iterative.py
 """
@@ -259,8 +261,17 @@ def _iterative_gap(n):
         v, g = f(*(jnp.asarray(a, dt) for a in (params, x, y, probes)))
         out[dt] = (float(v), np.asarray(g, np.float64))
     (v32, g32), (v64, g64) = out[jnp.float32], out[jnp.float64]
+    port = {}
+    for dt in (torch.float32, torch.float64):
+        v, g = it.nlml_value_and_grad(gt.RBF(), *(torch.as_tensor(a, dtype=dt) for a in (params, x, y, probes)),
+                                      rank=64, num_lanczos=16, cg_tol=1e-4, max_cg=64, block=4096)
+        port[dt] = (float(v), g.detach().double().numpy())
+    (pv32, pg32), (pv64, pg64) = port[torch.float32], port[torch.float64]
     return {"n": n, "value_f32": v32, "value_f64": v64, "rel_value": abs(v32 - v64) / abs(v64),
-            "rel_grad": float(np.linalg.norm(g32 - g64) / np.linalg.norm(g64))}
+            "rel_grad": float(np.linalg.norm(g32 - g64) / np.linalg.norm(g64)),
+            "port_value_f32": pv32, "port_value_f64": pv64, "port_rel_value": abs(pv32 - pv64) / abs(pv64),
+            "port_rel_grad": float(np.linalg.norm(pg32 - pg64) / np.linalg.norm(pg64)),
+            "port_f64_vs_jax_f64_value": abs(pv64 - v64) / abs(v64)}
 
 
 def _exact_gap(n):
@@ -282,44 +293,85 @@ def _exact_gap(n):
             "rel_grad": float(np.linalg.norm(g32 - g64) / np.linalg.norm(g64))}
 
 
-def _variance_gap(n, n_query=512):
-    """Relative gaps of the diagonal predictive variance's latent part
-    (var − σₙ² − jitter), in norm over ``n_query`` queries, on the JAX
-    package's XLA path at its bench settings: f32 against f64, and f64
-    against the exact GP (a dense f64 solve in NumPy)."""
-    from pygpr_tpu.config import Config
-
+def _variance_inputs(n, n_query=512):
+    """The variance readings' data: the iterative bench's generator at n
+    (f64), ``n_query`` queries and its parameters."""
     rng = np.random.default_rng(0)
     x = rng.uniform(0, 4, (n, 2))
     y = np.sin(2.0 * x.sum(-1)) + 0.1 * rng.normal(size=n)
     xq = rng.uniform(0, 4, (n_query, 2))
-    params = np.array([1.0, 1.0, 1.0, 0.1])
-    f = jax.jit(lambda p, xx, yy, qq: ij.predict(
-        gj.RBF(), p, xx, yy, qq, var="diag", rank=64, cg_tol=1e-4, max_cg=64, block=4096)[1])
-    sn2 = params[-1] ** 2
-    lat = {dt: np.asarray(f(*(jnp.asarray(a, dt) for a in (params, x, y, xq))), np.float64) - sn2 - Config().jitter
-           for dt in (jnp.float32, jnp.float64)}
+    return np.array([1.0, 1.0, 1.0, 0.1]), x, y, xq
+
+
+def _latent_variances(inputs):
+    """The diagonal predictive variance's latent part (var − σₙ² − jitter)
+    at the bench's solver settings, in f32 and f64, by the JAX package's
+    XLA path and by the port: ``{("jax" | "port", "f32" | "f64"): array}``."""
+    from pygpr_tpu.config import Config
+
+    kw = dict(var="diag", rank=64, cg_tol=1e-4, max_cg=64, block=4096)
+    f = jax.jit(lambda p, xx, yy, qq: ij.predict(gj.RBF(), p, xx, yy, qq, **kw)[1])
+    sn2 = inputs[0][-1] ** 2
+    out = {}
+    for name, jdt, tdt in (("f32", jnp.float32, torch.float32), ("f64", jnp.float64, torch.float64)):
+        out["jax", name] = np.asarray(f(*(jnp.asarray(a, jdt) for a in inputs)), np.float64) - sn2 - Config().jitter
+        with torch.no_grad():
+            var = it.predict(gt.RBF(), *(torch.as_tensor(a, dtype=tdt) for a in inputs), **kw)[1]
+        out["port", name] = var.double().numpy() - sn2 - gt.DEFAULT.jitter
+    return out
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _variance_gap(n, n_query=512):
+    """Relative gaps of the diagonal predictive variance's latent part, in
+    norm over ``n_query`` queries, at the bench's settings, in both
+    packages: f32 against f64, and f64 against the exact GP (a dense f64
+    solve in NumPy)."""
+    inputs = _variance_inputs(n, n_query)
+    params, x, _, xq = inputs
+    lat = _latent_variances(inputs)
 
     def gram(a, b):
         return np.exp(-np.sum((a[:, None, :] - b[None, :, :]) ** 2, axis=-1))
 
-    chol = np.linalg.cholesky(gram(x, x) + sn2 * np.eye(n))
+    chol = np.linalg.cholesky(gram(x, x) + params[-1] ** 2 * np.eye(n))
     half = np.linalg.solve(chol, gram(x, xq))
     exact = 1.0 - np.sum(half * half, axis=0)
-
-    def rel(a, b):
-        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
-
     return {"n": n, "latent_exact_median": float(np.median(exact)),
-            "f32_vs_f64": rel(lat[jnp.float32], lat[jnp.float64]), "f64_vs_exact": rel(lat[jnp.float64], exact)}
+            "f32_vs_f64": _rel(lat["jax", "f32"], lat["jax", "f64"]), "f64_vs_exact": _rel(lat["jax", "f64"], exact),
+            "port_f32_vs_f64": _rel(lat["port", "f32"], lat["port", "f64"]),
+            "port_f64_vs_exact": _rel(lat["port", "f64"], exact),
+            "port_f64_vs_jax_f64": _rel(lat["port", "f64"], lat["jax", "f64"])}
+
+
+def _variance_gap_spread(n, n_query=512):
+    """The f32-against-f64 gap of the latent variance in both packages on
+    the f32-rounded data of :func:`_variance_gap` and on the same data
+    with every input coordinate moved one f32 ulp up, and down: how far
+    f32 round-off alone moves each package's gap."""
+    params, x, y, xq = _variance_inputs(n, n_query)
+    x32 = x.astype(np.float32)
+    out = {"n": n, "jax": {}, "port": {}}
+    for name, xs in (("data", x32), ("up", np.nextafter(x32, np.float32(np.inf))),
+                     ("down", np.nextafter(x32, np.float32(-np.inf)))):
+        lat = _latent_variances((params, xs.astype(np.float64), y, xq))
+        for package in ("jax", "port"):
+            out[package][name] = _rel(lat[package, "f32"], lat[package, "f64"])
+    return out
 
 
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
+    torch.set_num_threads(4)
     for n in (4096, 8192):
         print(json.dumps({"iterative": _iterative_gap(n)}), flush=True)
     for n in (2048, 8192):
         print(json.dumps({"exact": _exact_gap(n)}), flush=True)
     for n in (4096, 8192):
         print(json.dumps({"variance": _variance_gap(n)}), flush=True)
+    for n in (4096, 8192):
+        print(json.dumps({"variance_spread": _variance_gap_spread(n)}), flush=True)

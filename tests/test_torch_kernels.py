@@ -258,6 +258,44 @@ def test_cholesky_inverse_plain_f64_exact(rng):
     assert torch.equal(Kt, torch.tensor(K))  # the caller's K is not written
 
 
+def test_cholesky_inverse_plain_f64_ragged(rng):
+    """Five 128-wide panels: the plain version's panels, tiles and band in
+    f64 against NumPy."""
+    n = 640
+    A = rng.standard_normal((n, n))
+    K = A @ A.T + n * np.eye(n)
+    L, T = chol_inverse.cholesky_inverse(torch.tensor(K))
+    np.testing.assert_allclose(L.numpy(), np.linalg.cholesky(K), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(T.numpy() @ L.numpy(), np.eye(n), atol=1e-12)
+    assert np.all(np.triu(L.numpy(), 1) == 0.0) and np.all(np.triu(T.numpy(), 1) == 0.0)
+
+
+@pytest.mark.parametrize("p", [20, 300])
+def test_cholesky_inverse_plain_nan_from_first_negative_pivot(rng, p):
+    """L is finite left of the first non-positive pivot's column and NaN on
+    and below the diagonal from it on (the kernel's contract)."""
+    n = 512
+    A = rng.standard_normal((n, n))
+    K = A @ A.T + n * np.eye(n)
+    K[p, p] = -1.0
+    L, _ = chol_inverse.cholesky_inverse(torch.tensor(K))
+    L = L.numpy()
+    assert np.isfinite(L[:, :p]).all()
+    assert np.isnan(L[p:, p:][np.tril_indices(n - p)]).all()
+
+
+def test_compare_k2_exits_without_a_card(tmp_path, capsys):
+    """The card-only comparison of K2 with an earlier source fails, and
+    builds nothing, where there is no CUDA device."""
+    from pygpr_torch.bench import compare_k2
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would build and time")
+    assert compare_k2.main(["--old", str(tmp_path), "2048"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not any(tmp_path.iterdir())
+
+
 def test_cholesky_inverse_indefinite_nan():
     L, _ = chol_inverse.cholesky_inverse(-torch.eye(256))
     assert not torch.isfinite(L).all()

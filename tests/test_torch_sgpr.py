@@ -180,3 +180,56 @@ def test_sgpr_wrapper_and_noise_free_check(parity):
     close(mean, want["mean_full"])
     close(var, want["cov_full"])
     close(model.neg_elbo(), want["value"])
+
+
+def _f32_fit_readings(package, names=("bench", "up", "down")):
+    """The SGPR bench's f32 fit (``bench_sgpr_large_n``: N = 98304, m = 1024,
+    60 L-BFGS iterations, the bench's data, inducing points and start) in
+    one package on the CPU, from the bench's start and from the starts one
+    f32 ulp above and below it in every parameter (``np.nextafter``).  Prints
+    one JSON line a start: the final negative ELBO, the iterations taken,
+    the parameters and the RMSE of the predictive mean against the
+    noise-free targets.  From forty minutes to hours a start on a CPU."""
+    import json
+    import time
+
+    from pygpr_torch import bench as tb
+
+    x, y, xs, ys_true, _ = tb.sgpr_large_n_data()
+    z = st.init_inducing(x, 1024, seed=0)
+    base = np.asarray(sj.init_params(gj.RBF(), jnp.asarray(x)), np.float32)
+    starts = {"bench": base, "up": np.nextafter(base, np.float32(np.inf)),
+              "down": np.nextafter(base, np.float32(-np.inf))}
+    if package == "jax":
+        jax.config.update("jax_enable_x64", False)
+        xj, yj, zj, xsj = (jnp.asarray(a, jnp.float32) for a in (x, y, z, xs))
+        fitf = jax.jit(lambda p: sj.fit(gj.RBF(), p, xj, yj, zj, max_iter=60)[0])
+        post = jax.jit(lambda p: sj.predict(gj.RBF(), sj.factorize(gj.RBF(), p, xj, yj, zj), xsj, "diag")[0])
+    else:
+        xt, yt, zt, xst = (torch.as_tensor(a, dtype=torch.float32) for a in (x, y, z, xs))
+    for name in names:
+        p0 = starts[name]
+        t0 = time.perf_counter()
+        if package == "jax":
+            res = fitf(jnp.asarray(p0))
+            value, iters, params = float(res.value), int(res.iters), np.asarray(res.params)
+            mean = np.asarray(post(res.params))
+        else:
+            res, _ = st.fit(gt.RBF(), torch.as_tensor(p0), xt, yt, zt, max_iter=60)
+            value, iters, params = float(res.value), int(res.iters), res.params.numpy()
+            with torch.no_grad():
+                mean = st.predict(gt.RBF(), st.factorize(gt.RBF(), res.params, xt, yt, zt), xst, "diag")[0].numpy()
+        rmse = float(np.sqrt(np.mean((mean.astype(np.float64) - ys_true) ** 2)))
+        print(json.dumps({"package": package, "dtype": "float32", "start": name, "params0": p0.tolist(),
+                          "neg_elbo": value, "iters": iters, "params": params.tolist(), "rmse_vs_true": rmse,
+                          "seconds": time.perf_counter() - t0}), flush=True)
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_sgpr.py [jax|torch] [bench|up|down ...]
+    import sys
+
+    packages = [a for a in sys.argv[1:] if a in ("jax", "torch")] or ["jax", "torch"]
+    names = [a for a in sys.argv[1:] if a in ("bench", "up", "down")] or ["bench", "up", "down"]
+    for package in packages:
+        _f32_fit_readings(package, names)
