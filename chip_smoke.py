@@ -113,6 +113,12 @@ PROBE_LIBRARY_VALUE_GAP = 1e-3
 PROBE_LIBRARY_GRAD_GAP = 1e-2
 
 
+#: for each TPU kernel whose counterpart was redesigned for the H100, the
+#: numbered slice of the port that did it (ROADMAP.md, "Recent"); a
+#: redesigned kernel leaves the redesign order
+REDESIGNED_IN_SLICE = {"B4": 5, "B7": 5, "B2": 6, "B3": 6, "B6": 7}
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -447,31 +453,51 @@ def main() -> int:
     # the same against the f32 plain version.  These are the atol and rtol
     # of tests/test_pallas_matvec.py, with rtol taken against the column's
     # largest entry: an entry is a sum of n terms of either sign, whose f32
-    # rounding (expf's ulp, each thread's running sum of n/8 terms) follows
-    # the size of the partial sums, which is the column's scale, and not the
-    # entry's own size; at n = 32768 a sum near 0 carries the same absolute
+    # rounding (the exponential's ulps, each thread's running sums over its
+    # steps, the warps' and the splits' sums) follows the size of the
+    # partial sums, which is the column's scale, and not the entry's own
+    # size; at n = 32768 a sum near 0 carries the same absolute
     # rounding as its neighbours, so a bound on the entry alone would fail a
     # kernel that is right.  Inputs: the main path's data and θ = [1, 1, 1]
     # with V ~ N(0, 1), at every width the iterative phases launch at
     # n = 32768 (k = 1 and 8: the surrogate's forward and Lanczos; 9: CG;
     # 5 and 40: the surrogate's backward; 256: a variance chunk) and at
-    # the CG width at n = 131072; and a ragged n = 1030, d = 3 (the JAX
+    # every width they launch at n = 131072 (there the grid needs no
+    # split, so the sums are scaled by σ² in the kernel itself, and k = 40
+    # runs the wide BN = 48 template unsplit); and a ragged n = 1030, d = 3 (the JAX
     # test's size, the kernel's generic-d path), where neither n nor k
-    # fills a tile
+    # fills a tile.  Each line also gives the plan's regime (narrow: every
+    # column a thread; wide: the GEMM), template width and splits, and the
+    # TFLOP/s of 2n²(d + k)
     k4 = matvec.rbf_gram_matvec_cuda
     record["k4"] = {}
     rng = np.random.default_rng(11)
     x_main = {n: iterative_data(n, n_query=0)[0] for n in (32768, 131072)}
-    shapes = [(32768, 2, k) for k in (1, 5, 8, 9, 40, 256)] + [(131072, 2, 9), (1030, 3, 7)]
+    big_widths = (1, 5, 8, 9, 40)  # the widths the path launches at n = 131072
+    shapes = [(32768, 2, k) for k in (1, 5, 8, 9, 40, 256)] + [(131072, 2, k) for k in big_widths] + [(1030, 3, 7)]
+    # at n = 131072 one V holds every width's columns side by side, and one
+    # call of each plain version on it gives every width's reference
+    big = dict(zip(big_widths, np.split(np.arange(sum(big_widths)), np.cumsum(big_widths)[:-1])))
+    x_big, v_big, th_big = to_dev(x_main[131072], rng.standard_normal((131072, sum(big_widths))).astype(np.float32),
+                                  np.ones(3, np.float32))
+    p32_big = matvec.rbf_gram_matvec_plain(th_big, x_big, v_big)
+    p64_big = matvec.rbf_gram_matvec_plain(th_big.double(), x_big.double(), v_big.double())
     for n, d, k in shapes:
-        xn = x_main[n] if n in x_main else rng.uniform(0.0, 4.0, (n, d)).astype(np.float32)
-        thn = np.ones(d + 1, np.float32) if n in x_main else np.array([1.2, 0.8, 1.1, 0.9], np.float32)
-        x, v, th = to_dev(xn, rng.standard_normal((n, k)).astype(np.float32), thn)
+        if n == 131072:
+            cols = torch.as_tensor(big[k], device=dev)
+            x, v, th = x_big, v_big[:, cols].contiguous(), th_big
+        else:
+            xn = x_main[n] if n in x_main else rng.uniform(0.0, 4.0, (n, d)).astype(np.float32)
+            thn = np.ones(d + 1, np.float32) if n in x_main else np.array([1.2, 0.8, 1.1, 0.9], np.float32)
+            x, v, th = to_dev(xn, rng.standard_normal((n, k)).astype(np.float32), thn)
         out = k4(th, x, v)
         again = k4(th, x, v)
         bit_equal = bool(torch.equal(out, again))
-        p32 = matvec.rbf_gram_matvec_plain(th, x, v)
-        p64 = matvec.rbf_gram_matvec_plain(th.double(), x.double(), v.double())
+        if n == 131072:
+            p32, p64 = p32_big[:, cols], p64_big[:, cols]
+        else:
+            p32 = matvec.rbf_gram_matvec_plain(th, x, v)
+            p64 = matvec.rbf_gram_matvec_plain(th.double(), x.double(), v.double())
         tol = 1e-4 + 1e-3 * p64.abs().amax(dim=0)
         err = (out.double() - p64).abs()
         ratio64 = (err / tol).max().item()
@@ -487,7 +513,10 @@ def main() -> int:
         ok = all([check("k4", f"n={n} k={k} vs f64 {ratio64} of its bound", ratio64 <= 1.0),
                   check("k4", f"n={n} k={k} vs plain {ratio32} of its bound", ratio32 <= 1.0),
                   check("k4", f"n={n} k={k} two launches differ", bit_equal)])
-        rec = dict(n=n, d=d, k=k, max_abs_err=max_err, plain_max_abs_err=plain_err, err_over_bound_f64=ratio64,
+        plan = matvec.plan(n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+        rec = dict(n=n, d=d, k=k, regime=plan["regime"], template_width=plan["width"], splits=plan["splits"],
+                   tflops=2.0 * n * n * (d + k) / ms / 1e9,
+                   max_abs_err=max_err, plain_max_abs_err=plain_err, err_over_bound_f64=ratio64,
                    err_over_bound_plain=ratio32,
                    err_over_entry_bound_f64=ratio_entry,
                    bit_equal=bit_equal, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -496,6 +525,7 @@ def main() -> int:
         emit({"phase": "k4_matvec", **rec, "ms_over_bound": ms / b_ms, "ok": ok})
         record["k4"][(n, k)] = rec
         del x, v, out, again
+    del x_big, v_big, p32_big, p64_big
 
     # K4's autograd (its backward is K4 again, on the batched columns)
     # against torch.autograd through the f64 plain version: relative error
@@ -1257,16 +1287,28 @@ def main() -> int:
         "B5": main_path("k3", lambda s: chol_batched.batched_domain(*s)),
         "B6": main_path("k4"), "B7": main_path("k5"), "B8": main_path("k6"),
     }
-    # the redesign order: first the kernels slower than the one library call
-    # that computes the same function (K2's cholesky_ex computes L alone, so
-    # B2 and B3 have none), the largest factor first; then the rest by loss
+    # the redesign order, by the port's rule: first the kernels still due,
+    # never redesigned and either slower than the one library call that
+    # computes the same function (K2's cholesky_ex computes L alone, so B2
+    # and B3 have none; the largest factor first) or below half their bound
+    # on the main path (the largest loss first); the redesigned kernels
+    # follow in a list of their own, by loss, and the rest (no library call
+    # faster, at least half their bound) in a third
     for b, r in share.items():
         lib = r["main_path_library_ms"] if b not in ("B2", "B3") else None
         r["over_library"] = r["main_path_device_ms"] / lib if lib else None
-    slower = sorted((b for b, r in share.items() if (r["over_library"] or 0) > 1.0),
+        dev_ms = r["main_path_device_ms"]
+        r["share_of_bound"] = (dev_ms - r["main_path_loss_ms"]) / dev_ms if dev_ms > 0 else None
+        r["redesigned_in_slice"] = REDESIGNED_IN_SLICE.get(b)
+    by_loss = lambda b: -share[b]["main_path_loss_ms"]
+    fresh = [b for b in share if b not in REDESIGNED_IN_SLICE]
+    slower = sorted((b for b in fresh if (share[b]["over_library"] or 0) > 1.0),
                     key=lambda b: -share[b]["over_library"])
-    rest = sorted((b for b in share if b not in slower), key=lambda b: -share[b]["main_path_loss_ms"])
-    emit({"phase": "redesign_queue", "order": slower + rest, "by_tpu_kernel": share})
+    below = sorted((b for b in fresh if b not in slower and (share[b]["share_of_bound"] or 1.0) < 0.5), key=by_loss)
+    emit({"phase": "redesign_queue", "order": slower + below,
+          "redesigned": sorted(REDESIGNED_IN_SLICE, key=by_loss),
+          "near_bound": sorted((b for b in fresh if b not in slower + below), key=by_loss),
+          "by_tpu_kernel": share})
 
     # -- 12. kernels ---------------------------------------------------------
     r1, r4 = record["k1"], record["k4"][(32768, 9)]

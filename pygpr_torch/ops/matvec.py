@@ -7,7 +7,8 @@ Counterpart of ``pygpr_tpu/ops/pallas_matvec.py``.  For the bare
     out = σ² exp(−‖(xᵢ − xⱼ)⊙ℓ‖²) @ V,    x [n, d], V [n, k] → [n, k]
 
 On a CUDA tensor :func:`rbf_gram_matvec` launches the hand-written kernel
-in ``csrc/rbf_gram_matvec.cu`` (f32 only); on a CPU tensor it runs
+in ``csrc/rbf_gram_matvec.cu`` (f32 only), in the regime, template width
+and column-sweep splits that :func:`plan` picks; on a CPU tensor it runs
 :func:`rbf_gram_matvec_plain`, the same function in torch ops, one tile
 of rows at a time.  Both use direct differences Σₘ(xℓᵢₘ − xℓⱼₘ)², not
 the matmul trick, so the diagonal is exact.  The noise term is the
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import torch
 
@@ -30,8 +32,58 @@ from pygpr_torch.ops.gram import MAX_DIM
 
 #: largest tile of the plain version, in elements of its [rows, n] block
 PLAIN_TILE_ELEMS = 1 << 25
-#: widest V the kernel takes: 16 columns a block times the grid's 65535
+#: widest V the wrapper takes
 MAX_COLS = 16 * 65535
+#: the kernel's narrow templates (each thread holds every column of V): a
+#: width k ≤ 16 runs at the first of these that is ≥ k
+NARROW_WIDTHS = (1, 2, 4, 5, 8, 9, 12, 16)
+#: the wide templates' columns of V a block (k > 16), with the rows a
+#: block of each.  These tables and :func:`narrow_rows` copy the kernel's
+#: geometry; the first launch holds them against the library's own
+#: (``rbf_gram_matvec_geometry``) and raises if they differ
+WIDE_ROWS = {48: 128, 128: 128}
+#: column points a step of each regime (csrc: TC and BK); a split of the
+#: column sweep holds at least two steps
+STEP = {"narrow": 256, "wide": 32}
+#: the plan splits the column sweep until the grid holds this many blocks
+#: an SM, or the splits would fall below two steps each.  It counts blocks
+#: of the grid, not blocks resident at once (the widths 5 to 9 fit one
+#: block an SM); 2 was chosen in a trial on the H100, where 8 read slower
+#: at k = 8 and 9
+BLOCKS_PER_SM = 2
+#: streaming multiprocessors of an H100 SXM, for a plan made without a card
+H100_SMS = 132
+
+
+def narrow_rows(width: int) -> int:
+    """Rows a narrow block owns: 32 lanes times the rows a thread holds
+    (csrc: Narrow<KC>::R, as registers allow)."""
+    return 32 * (8 if width <= 9 else 2)
+
+
+def template_width(k: int) -> int:
+    """The template that runs V of width k: the first narrow width ≥ k, or
+    for k > 16 the wide block width of least padding (the larger on a tie)."""
+    if k <= NARROW_WIDTHS[-1]:
+        return next(w for w in NARROW_WIDTHS if w >= k)
+    return min(WIDE_ROWS, key=lambda bn: (-(-k // bn) * bn, -bn))
+
+
+def plan(n: int, k: int, sms: int = H100_SMS) -> dict:
+    """K4's launch for x [n, d], V [n, k] on a card of ``sms`` SMs: regime,
+    template width, rows a block, column tiles, splits of the column sweep
+    and the blocks of the grid."""
+    width = template_width(k)
+    regime = "narrow" if width <= NARROW_WIDTHS[-1] else "wide"
+    rows, step = geometry(width)
+    col_tiles = 1 if regime == "narrow" else -(-k // width)
+    tiles = -(-n // rows) * col_tiles
+    max_splits = max(1, n // (2 * step))
+    splits = 1
+    while tiles * splits < BLOCKS_PER_SM * sms and 2 * splits <= max_splits:
+        splits *= 2
+    return {"regime": regime, "width": width, "rows": rows, "col_tiles": col_tiles, "splits": splits,
+            "blocks": tiles * splits}
 
 
 def rbf_gram_matvec_plain(theta: torch.Tensor, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -52,14 +104,37 @@ def rbf_gram_matvec_plain(theta: torch.Tensor, x: torch.Tensor, v: torch.Tensor)
     return torch.square(sig) * torch.cat(outs)
 
 
+def geometry(width: int) -> tuple:
+    """(rows a block, column points a step) of template ``width``, as
+    :func:`plan` counts them."""
+    if width in WIDE_ROWS:
+        return WIDE_ROWS[width], STEP["wide"]
+    return narrow_rows(width), STEP["narrow"]
+
+
+@functools.lru_cache(maxsize=None)
 def _lib():
     from pygpr_torch.ops import _build
 
     lib = _build.load("rbf_gram_matvec")
+    geom = lib.rbf_gram_matvec_geometry
+    geom.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    geom.restype = ctypes.c_int
+    for width in NARROW_WIDTHS + tuple(WIDE_ROWS):
+        got = (ctypes.c_int * 2)()
+        err = geom(width, got)
+        if err != 0 or tuple(got) != geometry(width):
+            raise RuntimeError(f"rbf_gram_matvec: the plan's geometry of width {width}, {geometry(width)}, "
+                               f"is not the kernel's ({'none' if err else tuple(got)})")
     fn = lib.rbf_gram_matvec_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def rbf_gram_matvec_cuda(theta: torch.Tensor, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -67,7 +142,8 @@ def rbf_gram_matvec_cuda(theta: torch.Tensor, x: torch.Tensor, v: torch.Tensor) 
 
     ``x`` [n, d], ``theta`` [d + 1] and ``v`` [n, k]: f32, contiguous, on
     one CUDA device, 1 ≤ d ≤ :data:`MAX_DIM`, 1 ≤ k ≤ :data:`MAX_COLS`.
-    Raises on anything else.
+    Raises on anything else.  When :func:`plan` splits the column sweep,
+    a scratch ``[splits, n, k]`` holds the splits' sums.
     """
     if x.device.type != "cuda" or theta.device != x.device or v.device != x.device:
         raise ValueError("rbf_gram_matvec_cuda: theta, x and v must share a CUDA device")
@@ -84,9 +160,12 @@ def rbf_gram_matvec_cuda(theta: torch.Tensor, x: torch.Tensor, v: torch.Tensor) 
         raise ValueError("rbf_gram_matvec_cuda: inputs must be contiguous")
     fn = _lib()
     k = v.shape[1]
+    p = plan(n, k, _sms(x.device))
     out = torch.empty((n, k), dtype=torch.float32, device=x.device)
+    part = torch.empty((p["splits"], n, k), dtype=torch.float32, device=x.device) if p["splits"] > 1 else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), theta.data_ptr(), v.data_ptr(), out.data_ptr(), n, d, k, stream)
+    err = fn(x.data_ptr(), theta.data_ptr(), v.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
+             n, d, k, p["width"], p["splits"], stream)
     if err != 0:
         raise RuntimeError(f"rbf_gram_matvec kernel launch failed: CUDA error {err}")
     rbf_gram_matvec_cuda.launches += 1

@@ -193,11 +193,24 @@ def test_main_path_launches_both_kernels_and_matches_f64(dev):
     assert torch.linalg.norm(g.double() - g64) <= 1e-2 * torch.linalg.norm(g64)
 
 
-@pytest.mark.parametrize("n,d,k", [(1, 1, 1), (63, 2, 9), (1030, 3, 7), (300, 64, 20), (2048, 2, 56)])
+#: shapes whose plan on an H100 (132 SMs) needs no split of the column sweep
+UNSPLIT = ((6000, 2, 280), (70000, 2, 5))
+
+
+@pytest.mark.parametrize("n,d,k", [(1, 1, 1), (63, 2, 9), (1030, 3, 7), (300, 64, 20), (2048, 2, 56)]
+                         + [(2048, 2, k) for k in (1, 5, 8, 9, 40, 256)] + [(2048, 2, 17), (1031, 2, 40)]
+                         + list(UNSPLIT))
 def test_matvec_kernel_matches_f64_and_repeats_bit_equal(n, d, k, dev):
     """K4 against its plain version in f64 on the same f32 inputs, to
     1e-4 + 1e-3 of each column's largest entry (chip_smoke.py states why
-    the column's scale), and two launches give the same bits."""
+    the column's scale), and two launches give the same bits.  The cases
+    at n = 2048 are the iterative path's widths, both regimes, and the
+    plan splits their column sweep (the splits' sums added in a fixed
+    order); k = 17 is the first wide width; n = 1031 at k = 40 fills
+    neither regime's row tile.  The cases of ``UNSPLIT`` fill the card
+    with rows alone, so each block scales its own sums by σ²: the wide
+    BN = 48 template over 6 column tiles with ragged n and k, and the
+    narrow k = 5."""
     rng = np.random.default_rng(n + d + k)
     x = torch.tensor(rng.uniform(0.0, 4.0, (n, d)), dtype=torch.float32, device=dev)
     v = torch.tensor(rng.standard_normal((n, k)), dtype=torch.float32, device=dev)
@@ -205,6 +218,10 @@ def test_matvec_kernel_matches_f64_and_repeats_bit_equal(n, d, k, dev):
     out = matvec.rbf_gram_matvec_cuda(th, x, v)
     torch.cuda.synchronize()
     assert torch.equal(out, matvec.rbf_gram_matvec_cuda(th, x, v))
+    if n == 2048:
+        assert matvec.plan(n, k, matvec._sms(x.device))["splits"] > 1
+    if (n, d, k) in UNSPLIT:
+        assert matvec.plan(n, k, matvec._sms(x.device))["splits"] == 1
     p64 = matvec.rbf_gram_matvec_plain(th.double(), x.double(), v.double())
     assert ((out.double() - p64).abs() <= 1e-4 + 1e-3 * p64.abs().amax(dim=0)).all()
 

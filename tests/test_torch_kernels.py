@@ -287,11 +287,11 @@ def test_cholesky_inverse_plain_nan_from_first_negative_pivot(rng, p):
 def test_compare_k2_exits_without_a_card(tmp_path, capsys):
     """The card-only comparison of K2 with an earlier source fails, and
     builds nothing, where there is no CUDA device."""
-    from pygpr_torch.bench import compare_k2
+    from pygpr_torch.bench import compare
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the script would build and time")
-    assert compare_k2.main(["--old", str(tmp_path), "2048"]) == 1
+    assert compare.main(["--kernel", "k2", "--old", str(tmp_path), "2048"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
     assert not any(tmp_path.iterdir())
 

@@ -137,3 +137,74 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     x, v, theta = torch.zeros((4, 2)), torch.zeros((4, 1)), torch.ones(3)
     with pytest.raises(ValueError):
         matvec.rbf_gram_matvec_cuda(theta, x, v)
+
+
+#: every width the iterative GP launches K4 at, at n = 32768 (and the CG
+#: width at n = 131072): the forward and CG for the mean, the surrogate's
+#: backward at k = 1, Lanczos and the probes, CG on [y, probes], the
+#: backward at k = 8, a variance chunk
+PATH_WIDTHS = (1, 5, 8, 9, 40, 256)
+
+
+@pytest.mark.parametrize("n,k", [(32768, k) for k in PATH_WIDTHS] + [(131072, 9)])
+def test_plan_fills_the_card_without_padding_the_path_widths(n, k):
+    """At the iterative path's widths: a narrow template of exactly k
+    columns (no padded FMA), a wide one padded by at most 25 %, and a grid
+    of at least 2 blocks for each SM of an H100 (132 SMs).  These are
+    blocks of the grid, not blocks resident at once: the count is
+    BLOCKS_PER_SM, chosen by a trial on the card."""
+    p = matvec.plan(n, k)
+    if k <= 16:
+        assert (p["regime"], p["width"]) == ("narrow", k)
+    else:
+        assert p["regime"] == "wide"
+        assert p["col_tiles"] * p["width"] - k <= 0.25 * p["col_tiles"] * p["width"]
+    assert p["blocks"] >= 2 * matvec.H100_SMS
+    assert p["blocks"] == -(-n // p["rows"]) * p["col_tiles"] * p["splits"]
+    # each split holds at least two steps of the column sweep
+    assert p["splits"] == 1 or n // p["splits"] >= 2 * matvec.STEP[p["regime"]]
+
+
+def test_every_width_maps_to_a_launch_the_kernel_takes():
+    """Every k in 1..MAX_COLS gets a template the kernel instantiates
+    (csrc's launch_width): a narrow width ≥ k for k ≤ 16, else a wide block
+    width; and a grid the card takes (column tiles and splits ≤ 65535)."""
+    narrow, wide = set(matvec.NARROW_WIDTHS), set(matvec.WIDE_ROWS)
+    for k in range(1, matvec.MAX_COLS + 1):
+        w = matvec.template_width(k)
+        assert (k <= w and w in narrow) if k <= 16 else w in wide, (k, w)
+    for k in (1, 16, 17, 48, 49, 64, 65, 129, matvec.MAX_COLS):
+        for n in (1, 300, 8192, 131072):
+            p = matvec.plan(n, k)
+            assert p["col_tiles"] <= 65535 and 1 <= p["splits"] <= 65535
+            assert p["col_tiles"] * p["width"] >= k
+
+
+def test_compare_reads_the_old_sources_entry():
+    """The comparison tool reads an earlier source's C entry by its
+    parameters' types, and the current K4 source, whose entry takes the
+    plan's width and splits, is not the one its K4 mode calls."""
+    from pathlib import Path
+
+    from pygpr_torch.bench import compare
+
+    old = ("extern \"C\" int rbf_gram_matvec_f32(const void* x, const void* theta, const void* v, void* out,\n"
+           "                                   int n, int d, int k, void* stream) {")
+    name, want = compare.OLD_ENTRIES["k4"]
+    assert compare.entry_types(old, name) == want
+    assert compare.entry_types(old, "chol_inverse_f32") == ()
+    src = (Path(matvec.__file__).parent.parent / "csrc" / "rbf_gram_matvec.cu").read_text()
+    now = compare.entry_types(src, name)
+    assert now[:4] == want[:4] and now != want and len(now) == 11
+
+
+def test_compare_k4_exits_without_a_card(tmp_path, capsys):
+    """The card-only comparison of K4 with an earlier source fails, and
+    builds nothing, where there is no CUDA device."""
+    from pygpr_torch.bench import compare
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would build and time")
+    assert compare.main(["--kernel", "k4", "--old", str(tmp_path)]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not any(tmp_path.iterdir())
