@@ -116,7 +116,7 @@ PROBE_LIBRARY_GRAD_GAP = 1e-2
 #: for each TPU kernel whose counterpart was redesigned for the H100, the
 #: numbered slice of the port that did it (ROADMAP.md, "Recent"); a
 #: redesigned kernel leaves the redesign order
-REDESIGNED_IN_SLICE = {"B4": 5, "B7": 5, "B2": 6, "B3": 6, "B6": 7}
+REDESIGNED_IN_SLICE = {"B4": 5, "B7": 5, "B2": 6, "B3": 6, "B6": 7, "B5": 8, "B8": 8}
 
 
 def emit(obj) -> None:
@@ -237,9 +237,12 @@ def main() -> int:
         diagonal block and T's band; at the first panel also its
         factorization), K2's trailing updates and its zeros (its products;
         the update's first block also factors and inverts the next diagonal
-        block, beside the other tiles), K3's panel launches (K3's pivot
-        chain), K3's trailing updates and its load, K4, and every other
-        kernel ("torch")."""
+        block, beside the other tiles), K3's panel launches (its pivot
+        chain: each 64-wide diagonal block and the rows below it; on a large
+        stack in B5's domain the first diagonal block and the rows below each
+        outer panel of 128), K3's trailing updates and its load (on a large
+        stack in B5's domain the updates' first blocks also factor the next
+        diagonal block), K4, and every other kernel ("torch")."""
         from torch.profiler import ProfilerActivity, profile
 
         torch.cuda.synchronize()
@@ -255,7 +258,7 @@ def main() -> int:
                 groups["k4"] += us
             elif "rbf_noise_gram_kernel" in e.key:
                 groups["k1"] += us
-            elif "chol_batched_panel_kernel" in e.key:
+            elif "chol_batched_panel" in e.key or "chol_batched_diag128" in e.key:
                 groups["k3_panel"] += us
             elif "chol_batched_" in e.key:
                 groups["k3_update"] += us
@@ -382,8 +385,10 @@ def main() -> int:
     # round-off times cond(K)); against the plain version, max-abs
     # difference ≤ 1e-3 of max|L| (the same right-looking algorithm, with
     # cuBLAS's summation order in the plain version's products).  Shapes:
-    # the main path's, [1024, 1024] the SGPR bench's Kuu and [100, 628, 628]
-    # a chunk of the 10⁶-point serving bench
+    # the main path's, [1024, 1024] the SGPR bench's Kuu, [100, 628, 628]
+    # a chunk of the 10⁶-point serving bench, and [4, 1536, 1536] a small
+    # stack in B5's domain (K3's 64-wide sweep, as at [16, 768, 768]; the
+    # outer panels of 128 take [16, 6400, 6400])
     def committee_grams(nb, n, seed=3):
         """RBF + noise grams of the committee's inputs: d = 2 on [0, 4]²,
         σ = ℓ = 1, σₙ = 0.1."""
@@ -392,7 +397,7 @@ def main() -> int:
         return torch.stack([gram.rbf_noise_gram_plain(p, xi) for xi in to_dev(*x)])
 
     record["k3"] = {}
-    for nb, n in ((1, 256), (1, 1000), (1, 1024), (16, 768), (100, 628), (16, 6400)):
+    for nb, n in ((1, 256), (1, 1000), (1, 1024), (16, 768), (100, 628), (4, 1536), (16, 6400)):
         K = committee_grams(nb, n)
         K = K[0] if nb == 1 else K  # [n, n] as cholesky_pallas takes it
         L = chol_batched.cholesky_batched_cuda(K)

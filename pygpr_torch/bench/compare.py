@@ -1,29 +1,46 @@
 """A kernel against an earlier version of its source, on one card in one
 process.
 
-    python -m pygpr_torch.bench.compare --kernel {k2,k4} --old DIR [n ...]
+    python -m pygpr_torch.bench.compare --kernel {k2,k3,k4,k6} --old DIR [n ...]
 
-``DIR`` holds the earlier source, unpacked from git into a directory that
-``.gitignore`` lists::
+``DIR`` holds the earlier source and the headers it includes, unpacked
+from git into a directory that ``.gitignore`` lists, for example::
 
-    mkdir -p _archive/k2_old && git show <commit>:pygpr_torch/csrc/chol_inverse.cu > _archive/k2_old/chol_inverse.cu
-    mkdir -p _archive/k4_old && git show <commit>:pygpr_torch/csrc/rbf_gram_matvec.cu > _archive/k4_old/rbf_gram_matvec.cu
+    mkdir -p _archive/k3_old
+    for f in chol_batched.cu small_chol.cuh; do
+      git show <commit>:pygpr_torch/csrc/$f > _archive/k3_old/$f; done
 
 It is built there with the package's ``nvcc`` flags.  Each mode calls
 one earlier C entry, named below, through ``ctypes``; a source that does
 not declare exactly that entry (``OLD_ENTRIES``) is refused before it is
-built.  Both kernels are timed in turns (old, new, new, old; CUDA events
-over a few calls each).  The card's name and power limit come first.
+built.  Both kernels are timed in turns (old, new, new, old).  The card's
+name and power limit come first.
 
-``--kernel k2``: K2 (``csrc/chol_inverse.cu``) against the left-looking
-split-k version (C entry ``chol_inverse_f32(K, L, T, W, X, P, partial_cap,
-n, stream)``, 64-wide panels).  For each n (default: every n the main path
-gives K2) one JSON line: both kernels' device ms, the larger gap between
-their factors (relative to max|L| and max|T|), each one's relative L error
-and max|TL − I| against f64 at n ≤ 8192, and at n = 2048, 4096 and 8192
-the f32 NLML gradient's relative error against f64 with each kernel in the
-fast path (the flagship's data, ``bench.py::make_data``, as
-``chip_smoke.py`` draws it).
+``--kernel k2``: K2 (``csrc/chol_inverse.cu``, with ``block_inverse.cuh``
+and ``small_chol.cuh``) against a version with C entry
+``chol_inverse_f32(K, L, T, P, n, stream)``.  For each n (default: every
+n the main path gives K2) one JSON line: both kernels' device ms (CUDA
+events over a few calls each), whether their factors are bit-equal and
+the larger gap between them (relative to max|L| and max|T|), each one's
+relative L error and max|TL − I| against f64 at n ≤ 8192, and at
+n = 2048, 4096 and 8192 the f32 NLML gradient's relative error against
+f64 with each kernel in the fast path (the flagship's data,
+``bench.py::make_data``, as ``chip_smoke.py`` draws it).
+
+``--kernel k3``: K3 (``csrc/chol_batched.cu``, with ``small_chol.cuh``)
+against a version with the same C entry ``chol_batched_f32(K, L, Diag,
+nb, n, n_pad, stream)`` and a scratch ``Diag`` of
+``chol_batched_scratch_floats(nb, n, n_pad)`` floats where the version
+declares that entry, else ``[nb, 64, 64]``.  For each
+shape (default: every shape the main path gives K3, B4's and B5's, and
+the card tests' stacks; given as pairs ``nb n``) one JSON line: both
+kernels' device ms (queued behind a spin kernel, as ``chip_smoke.py``
+times K3), each one's device ms of its panel launches and of its
+trailing updates (torch.profiler, ``chip_smoke.py``'s groups), and the
+largest gap between their factors, on ``chip_smoke.py``'s committee
+grams.  K3's factors are bit-equal to those
+of the version at commit 6647aab on every shape (``csrc/chol_batched.cu``
+says why), so the mode exits 1 if any gap is not exactly 0.
 
 ``--kernel k4``: K4 (``csrc/rbf_gram_matvec.cu``) against the version with
 C entry ``rbf_gram_matvec_f32(x, theta, v, out, n, d, k, stream)``.  For
@@ -33,6 +50,14 @@ kernels' device ms and TFLOP/s (2n²(d + k)), the largest gap between their
 outputs and each one's largest error against the f64 plain version, as a
 share of ``chip_smoke.py``'s bound (1e-4 + 1e-3 of the column's largest
 entry), on the main path's data (``chip_smoke.py::iterative_data``).
+
+``--kernel k6``: K6 (``tri_inverse_blocks_f32`` of ``csrc/block_probe.cu``)
+against a version with the same C entry ``tri_inverse_blocks_f32(in, out,
+P, stream)``.  For each P (default 16 and 64, the stage probe's strips at
+n = 2048 and 8192) one JSON line: both kernels' device ms (queued behind
+a spin kernel), the gap between their inverses and each one's error
+against f64, relative to the largest entry, on the probe's strips
+(``chip_smoke.py``'s K6 inputs).
 """
 
 from __future__ import annotations
@@ -50,20 +75,25 @@ import torch
 
 #: every n the main path of ``chip_smoke.py`` gives K2
 K2_MAIN_PATH_N = (256, 2048, 4096, 6400, 8192, 16384)
+#: every shape (nb, n) the main path of ``chip_smoke.py`` gives K3 (B4's
+#: matrices, the 10⁶-point serving chunk, B5's stacks), and the card
+#: tests' stacks on either side of the choice between K3's launch sequences
+K3_SHAPES = ((1, 256), (1, 1000), (1, 1024), (16, 768), (100, 628), (16, 6400), (4, 1536), (3, 2560), (16, 2048),
+             (3, 4096))
+#: the stage probe's strips, P blocks of 128 (n = 2048 and 8192)
+K6_PANELS = (16, 64)
 #: the widths the main path of ``chip_smoke.py`` launches K4 at, by n
 K4_MAIN_PATH = {32768: (1, 5, 8, 9, 40, 256), 131072: (1, 5, 8, 9, 40)}
 #: the C source each kernel is built from
-SOURCES = {"k2": "chol_inverse", "k4": "rbf_gram_matvec"}
+SOURCES = {"k2": "chol_inverse", "k3": "chol_batched", "k4": "rbf_gram_matvec", "k6": "block_probe"}
 #: the one earlier C entry each mode calls, by its parameters' types: an
 #: old source that does not declare exactly this entry is refused
 OLD_ENTRIES = {
-    "k2": ("chol_inverse_f32",
-           ("const void*", "void*", "void*", "void*", "void*", "void*", "long long", "int", "void*")),
+    "k2": ("chol_inverse_f32", ("const void*", "void*", "void*", "void*", "int", "void*")),
+    "k3": ("chol_batched_f32", ("const void*", "void*", "void*", "int", "int", "int", "void*")),
     "k4": ("rbf_gram_matvec_f32", ("const void*", "const void*", "const void*", "void*", "int", "int", "int", "void*")),
+    "k6": ("tri_inverse_blocks_f32", ("const void*", "void*", "int", "void*")),
 }
-#: most k-splits of the split-k version's left-looking products (its
-#: wrapper's MAX_SPLITS; sizes its scratch)
-SPLITK_MAX_SPLITS = 16
 
 
 def entry_types(source: str, name: str) -> tuple:
@@ -90,20 +120,17 @@ def build_old(src_dir: Path, name: str) -> ctypes.CDLL:
 
 
 def old_k2(lib: ctypes.CDLL):
-    """The split-k library's ``(L, T)`` of a CUDA f32 ``K``."""
+    """The earlier library's ``(L, T)`` of a CUDA f32 ``K``."""
     fn = lib.chol_inverse_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
 
     def call(K):
         n = K.shape[0]
         opts = dict(dtype=torch.float32, device=K.device)
-        L, T = torch.empty((n, n), **opts), torch.empty((n, n), **opts)
-        W, X = torch.empty((n, 64), **opts), torch.empty((64, n), **opts)
-        P = torch.empty((SPLITK_MAX_SPLITS * n * 64,), **opts)
+        L, T, P = torch.empty((n, n), **opts), torch.empty((n, n), **opts), torch.empty((128, n), **opts)
         stream = torch.cuda.current_stream(K.device).cuda_stream
-        err = fn(K.data_ptr(), L.data_ptr(), T.data_ptr(), W.data_ptr(), X.data_ptr(), P.data_ptr(), P.numel(), n,
-                 stream)
+        err = fn(K.data_ptr(), L.data_ptr(), T.data_ptr(), P.data_ptr(), n, stream)
         if err != 0:
             raise RuntimeError(f"old chol_inverse launch failed: CUDA error {err}")
         return L, T
@@ -115,6 +142,29 @@ def events_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device ms a call, the calls queued behind a spin kernel twice as
+    long as the host takes to issue them (at 1.98 GHz), so that the events
+    time them back to back even where a call's launches are shorter than
+    its host work (``chip_smoke.py``'s ``shape_ms``)."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(max(20_000_000, int(2.0 * 1.98e9 * reps * host_s)))
     a.record()
     for _ in range(reps):
         fn()
@@ -144,6 +194,7 @@ def compare_k2(old, ns, device="cuda") -> list:
         Ln, Tn = new(K)
         row = {"n": n, "old_ms": turns["old"], "new_ms": turns["new"],
                "old_over_new": float(np.mean(turns["old"]) / np.mean(turns["new"])),
+               "bit_equal": bool(torch.equal(Ln, Lo) and torch.equal(Tn, To)),
                "L_gap_over_max": ((Ln - Lo).abs().max() / Lo.abs().max()).item(),
                "T_gap_over_max": ((Tn - To).abs().max() / To.abs().max()).item()}
         if n <= 8192:
@@ -228,6 +279,143 @@ def compare_k4(old, ns, device="cuda") -> list:
     return rows
 
 
+def old_k3(lib: ctypes.CDLL):
+    """The earlier library's factor of a CUDA f32 ``K``, ``[n, n]`` or
+    ``[nb, n, n]``."""
+    fn = lib.chol_batched_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    try:  # a version that sizes its own scratch
+        size = lib.chol_batched_scratch_floats
+        size.argtypes = [ctypes.c_int] * 3
+        size.restype = ctypes.c_longlong
+    except AttributeError:  # [nb, 64, 64]
+        size = lambda nb, n, n_pad: nb * 64 * 64
+
+    def call(K):
+        n = K.shape[-1]
+        nb = K.shape[0] if K.ndim == 3 else 1
+        n_pad = -(-n // 64) * 64
+        opts = dict(dtype=torch.float32, device=K.device)
+        L, D = torch.empty((nb, n_pad, n_pad), **opts), torch.empty((size(nb, n, n_pad),), **opts)
+        stream = torch.cuda.current_stream(K.device).cuda_stream
+        err = fn(K.data_ptr(), L.data_ptr(), D.data_ptr(), nb, n, n_pad, stream)
+        if err != 0:
+            raise RuntimeError(f"old chol_batched launch failed: CUDA error {err}")
+        L = L[:, :n, :n].contiguous()
+        return L if K.ndim == 3 else L[0]
+
+    return call
+
+
+def committee_grams(nb, n, device, seed=3):
+    """``chip_smoke.py``'s K3 inputs: RBF + noise grams, d = 2 on [0, 4]²,
+    σ = ℓ = 1, σₙ = 0.1; ``[n, n]`` for nb = 1."""
+    from pygpr_torch.ops import gram
+
+    x = np.random.default_rng(seed).uniform(0.0, 4.0, size=(nb, n, 2)).astype(np.float32)
+    p = torch.tensor([1.0, 1.0, 1.0, 0.1], device=device)
+    K = torch.stack([gram.rbf_noise_gram_plain(p, torch.tensor(xi, device=device)) for xi in x])
+    return K[0] if nb == 1 else K
+
+
+def k3_parts(fn) -> dict:
+    """Device ms of one call of a K3 version by group of kernels, from
+    torch.profiler, as ``chip_smoke.py`` groups them: ``panel_ms`` (the
+    panel launches and the first diagonal block) and ``update_ms`` (the
+    trailing updates and the load); and by kernel, launches and ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    parts = {"panel_ms": 0.0, "update_ms": 0.0, "launches": {}}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        us = getattr(e, "cuda_time_total", 0.0) if us is None else us
+        if "chol_batched_" not in e.key:
+            continue
+        parts["panel_ms" if "chol_batched_panel" in e.key or "chol_batched_diag128" in e.key else "update_ms"] += us / 1e3
+        name = re.search(r"chol_batched_\w+", e.key).group(0)
+        parts["launches"][name] = [e.count, us / 1e3]  # launches, device ms in all
+    return parts
+
+
+def compare_k3(old, shapes, device="cuda") -> list:
+    from pygpr_torch.ops import chol_batched
+
+    new = chol_batched.cholesky_batched_cuda
+    rows = []
+    for nb, n in shapes:
+        K = committee_grams(nb, n, torch.device(device))
+        reps = 3 if n >= 4096 else 10
+        turns = {"old": [], "new": []}
+        for who in ("old", "new", "new", "old"):
+            turns[who].append(queued_ms(lambda: (old if who == "old" else new)(K), reps))
+        Lo, Ln = old(K), new(K)
+        row = {"shape": list(K.shape), "batched_domain": chol_batched.batched_domain(nb, n),
+               "old_ms": turns["old"], "new_ms": turns["new"],
+               "old_over_new": float(np.mean(turns["old"]) / np.mean(turns["new"])),
+               "max_abs_gap": (Ln - Lo).abs().max().item(), "bit_equal": bool(torch.equal(Ln, Lo)),
+               "finite": bool(torch.isfinite(Ln).all())}
+        for who, fn in (("old", old), ("new", new)):
+            row.update({f"{who}_{k}": v for k, v in k3_parts(lambda: fn(K)).items()})
+        del K, Lo, Ln
+        torch.cuda.empty_cache()
+        print(json.dumps({"compare_k3": row}), flush=True)
+        rows.append(row)
+    return rows
+
+
+def old_k6(lib: ctypes.CDLL):
+    """The earlier library's inverses of a CUDA f32 strip ``[P·128, 128]``."""
+    fn = lib.tri_inverse_blocks_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+
+    def call(S):
+        out = torch.empty_like(S)
+        err = fn(S.data_ptr(), out.data_ptr(), S.shape[0] // 128, torch.cuda.current_stream(S.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"old tri_inverse_blocks launch failed: CUDA error {err}")
+        return out
+
+    return call
+
+
+def compare_k6(old, panels, device="cuda") -> list:
+    from pygpr_torch.bench import mfu_probe
+
+    new = mfu_probe.tinv_strip
+    dev = torch.device(device)
+    eye = torch.eye(128, device=dev)
+    rows = []
+    for P in panels:
+        n = 128 * P
+        A = torch.tensor(np.random.default_rng(0).standard_normal((n, n)).astype(np.float32), device=dev)
+        Kp = A @ A.T / n + 4.0 * torch.eye(n, device=dev)
+        trils = torch.stack([torch.tril(Kp[i * 128:(i + 1) * 128, i * 128:(i + 1) * 128]) for i in range(P)]) + 2.0 * eye
+        S = trils.reshape(-1, 128)
+        turns = {"old": [], "new": []}
+        for who in ("old", "new", "new", "old"):
+            turns[who].append(queued_ms(lambda: (old if who == "old" else new)(S), 50))
+        To, Tn = (f(S).reshape(P, 128, 128) for f in (old, new))
+        T64 = torch.linalg.solve_triangular(trils.double(), eye.double(), upper=False)
+        top = T64.abs().max()
+        row = {"panels": P, "old_ms": turns["old"], "new_ms": turns["new"],
+               "old_over_new": float(np.mean(turns["old"]) / np.mean(turns["new"])),
+               "gap_over_max": ((Tn - To).abs().max() / To.abs().max()).item(),
+               "old_err_over_max_f64": ((To.double() - T64).abs().max() / top).item(),
+               "new_err_over_max_f64": ((Tn.double() - T64).abs().max() / top).item(),
+               "new_upper_zero": bool((torch.triu(Tn, 1) == 0).all()),
+               "new_repeats_bit_equal": bool(torch.equal(new(S), Tn.reshape(-1, 128)))}
+        del A, Kp, trils, S, To, Tn, T64
+        print(json.dumps({"compare_k6": row}), flush=True)
+        rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=sorted(SOURCES), default="k2")
@@ -250,8 +438,16 @@ def main(argv=None) -> int:
     lib = build_old(args.old.resolve(), SOURCES[args.kernel])
     if args.kernel == "k2":
         compare_k2(old_k2(lib), args.n or list(K2_MAIN_PATH_N))
-    else:
+    elif args.kernel == "k3":
+        shapes = list(zip(args.n[::2], args.n[1::2])) if args.n else list(K3_SHAPES)
+        rows = compare_k3(old_k3(lib), shapes)
+        if not all(r["bit_equal"] for r in rows):
+            print("compare: K3's factors differ from the earlier version's", file=sys.stderr)
+            return 1
+    elif args.kernel == "k4":
         compare_k4(old_k4(lib), args.n or list(K4_MAIN_PATH))
+    else:
+        compare_k6(old_k6(lib), args.n or list(K6_PANELS))
     return 0
 
 

@@ -40,7 +40,9 @@ tensor, or run the plain versions on a CPU tensor:
   * :func:`tri_inverse_block` — ``_tri_inverse``, 8×8 diagonal blocks by
     masked substitution, four doubling levels and one Newton step.
 
-Each keeps the JAX operation order, on ``[..., 128, 128]``.
+Each keeps the JAX operation order, on ``[..., 128, 128]``.  Beside them,
+:func:`block_inverse` follows the kernel K6's own blocking (the inverse
+K2 applies to its diagonal blocks), for the tests.
 """
 
 from __future__ import annotations
@@ -142,6 +144,20 @@ def tri_inverse_block(L: torch.Tensor) -> torch.Tensor:
         T = T - torch.where(pair, X, 0.0)
         s *= 2
     return 2.0 * T - T @ (L @ T)
+
+
+def block_inverse(L: torch.Tensor) -> torch.Tensor:
+    """Inverse of each lower-triangular ``[B, B]`` block of ``L``
+    ``[..., B, B]`` by the blocking of kernel K6
+    (``csrc/block_inverse.cuh``): the four 32×32 diagonal tiles by
+    triangular solves, then two halving levels
+    ``inv([[A, 0], [C, D]]) = [[A⁻¹, 0], [−D⁻¹(CA⁻¹), D⁻¹]]`` — K2's inverse
+    of its diagonal blocks, block by block.  Only the lower triangle is
+    read, and a zero pivot is not guarded: it gives inf or NaN in its own
+    block."""
+    from pygpr_torch.ops.chol_inverse import _invert_diag
+
+    return _invert_diag(L)
 
 
 def _check_strip(S: torch.Tensor, name: str) -> int:

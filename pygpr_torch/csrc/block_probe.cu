@@ -15,17 +15,18 @@
 //     A non-positive pivot gives sqrtf's NaN (or a division by 0), which is
 //     not guarded and spreads through the rest of its block and no other.
 //   tri_inverse_blocks_f32 (K6): T = L^-1 of each block from its lower
-//     triangle (the upper triangle is never read), exact zeros above the
-//     diagonal.  The strips have no padding rows, so unlike _tri_inverse
+//     triangle (the values above the diagonal are never used), exact zeros
+//     above the diagonal.  The strips have no padding rows, so unlike _tri_inverse
 //     there is no guard that turns a zero pivot into 1: a zero pivot gives
 //     inf or NaN.
 //
 // What bounds them on an H100: latency.  Each kernel moves 2 P 128^2 4
 // bytes (read the strip, write the result: 2.5 us at P = 64 and 3.35 TB/s)
 // and does P 128^3 / 3 flops (0.7 us at P = 64 and the 67 TFLOP/s FP32
-// rate), but a block's 128 pivots (or 128 rows of a substitution) depend on
-// each other in order.  The P blocks run in parallel (up to 132 SMs), so a
-// strip takes about one block's chain, whatever P.
+// rate), but a block's 128 pivots depend on each other in order (K5), and
+// K6's solves and products on the ones before them.  The P blocks run in
+// parallel (up to 132 SMs), so a strip takes about one block's chain,
+// whatever P.
 //
 // What K5's design does about the chain: the block is factored as 4 panels
 // of 32 columns, right-looking (csrc/small_chol.cuh).  For each panel one
@@ -40,16 +41,20 @@
 // pad lets 4x4 transposing copies move the block in and each panel's
 // finished columns out as whole 128-byte rows, without bank conflicts.
 //
-// K6 gives each of 128 threads one column of T by forward substitution
-// from shared memory (the block's L and T, 128 KiB: rows of 128 floats, so
-// that thread c's reads of T[k][c] fall in bank c), with four partial sums
-// a row and an IEEE division by the pivot.  No tensor cores, no TMA: IEEE
-// f32 throughout.
+// K6 runs the blocked inverse that K2 applies to each diagonal block of its
+// sweep (invert_block, csrc/block_inverse.cuh), 256 threads a block: the
+// block goes to shared memory column-major with exact zeros above its
+// diagonal, the pivots' reciprocals beside it; four warps solve the four
+// 32x32 diagonal tiles at once (32 dependent steps, a multiplication by a
+// reciprocal each, no division on the chain), then two levels of small
+// FFMA products join them into the 64x64 halves and the whole.  No tensor
+// cores, no TMA: IEEE f32 throughout.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
+#include "block_inverse.cuh"
 #include "small_chol.cuh"
 
 namespace {
@@ -60,9 +65,10 @@ constexpr int BS = 128;        // block width; B in pallas_cholesky.py
 constexpr int LDB = BS + 4;     // column stride of the factorization's block
 constexpr int TW = 32;          // panel width: one warp's tile
 constexpr int CHOL_THREADS = 256;
-constexpr int TINV_THREADS = BS;
+constexpr int TINV_THREADS = INV_THREADS;
 constexpr size_t CHOL_SMEM = (size_t)BS * LDB * sizeof(float);
-constexpr size_t TINV_SMEM = 2 * (size_t)BS * BS * sizeof(float);
+constexpr size_t TINV_SMEM = (size_t)(BS * INV_LD + INV_SCRATCH + BS) * sizeof(float);
+static_assert(BS == INV_N, "K6 inverts the blocks of block_inverse.cuh");
 
 __global__ void __launch_bounds__(CHOL_THREADS)
 micro_cholesky_blocks_kernel(const float* __restrict__ in, float* __restrict__ out) {
@@ -113,35 +119,45 @@ micro_cholesky_blocks_kernel(const float* __restrict__ in, float* __restrict__ o
 
 __global__ void __launch_bounds__(TINV_THREADS)
 tri_inverse_blocks_kernel(const float* __restrict__ in, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* L = smem;            // [BS][BS], lower triangle only
-  float* T = smem + BS * BS;  // [BS][BS], column c written by thread c
-  const size_t base = (size_t)blockIdx.x * BS * BS;
+  extern __shared__ __align__(16) float tinv_smem[];
+  float* Dm = tinv_smem;           // column-major: Dm[k * INV_LD + i] = L[i][k], zeros above
+  float* S = Dm + BS * INV_LD;     // invert_block's scratch
+  float* rcp = S + INV_SCRATCH;    // rcp[i] = 1 / L[i][i]
+  const float* A = in + (size_t)blockIdx.x * BS * BS;
+  float* T = out + (size_t)blockIdx.x * BS * BS;
   const int tid = threadIdx.x;
-  for (int e = tid; e < BS * BS; e += TINV_THREADS) {
-    if (e % BS <= e / BS) L[e] = in[base + e];
-  }
-  __syncthreads();
-
-  const int c = tid;
-  T[c * BS + c] = 1.0f / L[c * BS + c];
-  for (int i = c + 1; i < BS; ++i) {
-    const float* Li = L + i * BS;
-    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-    int k = c;
-    for (; k + 3 < i; k += 4) {
-      s0 = fmaf(Li[k], T[k * BS + c], s0);
-      s1 = fmaf(Li[k + 1], T[(k + 1) * BS + c], s1);
-      s2 = fmaf(Li[k + 2], T[(k + 2) * BS + c], s2);
-      s3 = fmaf(Li[k + 3], T[(k + 3) * BS + c], s3);
+  // the lower triangle, transposed as load_4x4_t copies it; every entry
+  // above the diagonal is written as an exact zero and never read
+  for (int e = tid; e < 32 * 32; e += TINV_THREADS) {
+    int rg, kg;
+    block_of(e, rg, kg);
+    float c[4][4];  // c[u][q] = L[4 rg + u][4 kg + q]
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (kg <= rg) v = *reinterpret_cast<const float4*>(A + (size_t)(4 * rg + u) * BS + 4 * kg);
+      c[u][0] = v.x;
+      c[u][1] = v.y;
+      c[u][2] = v.z;
+      c[u][3] = v.w;
     }
-    for (; k < i; ++k) s0 = fmaf(Li[k], T[k * BS + c], s0);
-    T[i * BS + c] = -((s0 + s1) + (s2 + s3)) / Li[i];
+    float* s = Dm + 4 * kg * INV_LD + 4 * rg;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float w[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) w[u] = 4 * kg + q > 4 * rg + u ? 0.0f : c[u][q];
+      *reinterpret_cast<float4*>(s + q * INV_LD) = make_float4(w[0], w[1], w[2], w[3]);
+    }
   }
   __syncthreads();
-
-  for (int e = tid; e < BS * BS; e += TINV_THREADS) {
-    out[base + e] = e % BS <= e / BS ? T[e] : 0.0f;
+  if (tid < BS) rcp[tid] = 1.0f / Dm[tid * INV_LD + tid];
+  __syncthreads();
+  invert_block(Dm, S, rcp);
+  for (int e = tid; e < 32 * 32; e += TINV_THREADS) {
+    int rg, kg;
+    block_of(e, rg, kg);
+    store_4x4_t<INV_LD>(T, BS, Dm, rg, kg, true);
   }
 }
 

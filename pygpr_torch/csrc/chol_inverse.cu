@@ -28,7 +28,8 @@
 //      tile (0, 0), the next panel's diagonal block, goes on to factor it,
 //      as 4x4 tiles of 32 with the warp routines of csrc/small_chol.cuh,
 //      to invert it (X = D^-1: the diagonal tiles by warp-level row solves,
-//      the rest by small products), and to write D into L and X into T:
+//      the rest by small products; invert_block, csrc/block_inverse.cuh,
+//      which K6 shares), and to write D into L and X into T:
 //      the pivot chain runs beside the other tiles of the update (look-
 //      ahead), and no launch factors the diagonal block alone.
 //
@@ -66,6 +67,7 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "block_inverse.cuh"
 #include "small_chol.cuh"
 
 namespace {
@@ -78,11 +80,11 @@ constexpr int THREADS = 256;
 constexpr int LDD = NB + 4;   // column-major 128x128 tiles in shared memory (LDD % 32 == 4)
 constexpr int ITEM = 32;      // rows or columns of one panel item
 constexpr int LDW = ITEM + 4;
-constexpr int LDR0 = 64 + 4;  // invert_block's row-major scratch
-constexpr int LDR2 = TW + 4;
-constexpr int SCRATCH = 2 * 64 * LDR0 + TW * LDR2;  // floats; also holds one item (NB * LDW)
+constexpr int SCRATCH = INV_SCRATCH;  // floats (block_inverse.cuh); also holds one item (NB * LDW)
 constexpr int GK = 32;        // k chunk of the update
 constexpr int STAGES = 3;
+static_assert(NB == INV_N && LDD == INV_LD && THREADS == INV_THREADS && NB * LDW <= SCRATCH,
+              "the diagonal block's inverse (block_inverse.cuh) takes this block");
 
 // the diagonal block's factorization: D and then X in place, column-major
 // (Dm[k * LDD + i] = D[i][k]), the inverse's scratch, the pivots' reciprocals
@@ -99,24 +101,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The e-th 4x4 block (rg, kg) of a tile of up to 128x128, as load_4x4_t
-// and store_4x4_t copy it: a warp takes 8 neighbouring kg and 4
-// neighbouring rg (no bank conflicts with LD % 32 == 4).
-__device__ __forceinline__ void block_of(int e, int& rg, int& kg) {
-  kg = (e & 7) + 8 * ((e >> 5) & 3);
-  rg = ((e >> 3) & 3) + 4 * (e >> 7);
-}
-
-// acc[u][v] += a[u] b[v]
-__device__ __forceinline__ void fma4x4(float (&acc)[4][4], float4 a, float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
 }
 
 // Factor the 128x128 diagonal block Dm (column-major, Dm[k * LDD + i] =
@@ -160,114 +144,6 @@ __device__ void factor_block(float* Dm, float* rcp) {
     }
     __syncthreads();
   }
-}
-
-// X = D^-1 in place of the factored Dm (column-major; its tiles above the
-// diagonal zero on entry), by recursive 2x2 blocking: the four diagonal
-// tiles at once, one warp each, lane c solving e_c against D_ii (column c
-// of D_ii^-1, trsm32_rcp); the two 64x64 halves' corner tiles, X_ij =
-// -X_ii D_ij X_jj; then the lower left 64x64 block, -X[64:, 64:]
-// D[64:, :64] X[:64, :64].  Each X tile replaces its D tile once no later
-// step reads that D tile.  Every product
-// reads its left factor column-major and its right factor row-major from
-// the scratch S (row-major copies of the X tiles that are right factors,
-// and of the left halves of the products), 4x4 outputs a thread, float4
-// reads.  Entries of X above its diagonal are exact zeros.
-__device__ void invert_block(float* Dm, float* S, const float* rcp) {
-  float* Xm = Dm;  // the same storage: X tile by tile
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  float* XR0 = S;                     // X[0:64, 0:64], row-major
-  float* XR2 = XR0 + 64 * LDR0;       // X[64:96, 64:96], row-major
-  float* YR = XR2 + TW * LDR2;        // the products' left halves, row-major
-  for (int e = tid; e < TW * TW; e += THREADS) XR0[(e / TW) * LDR0 + TW + e % TW] = 0.0f;
-  if (warp < NB / TW) {
-    float x[TW];
-#pragma unroll
-    for (int m = 0; m < TW; ++m) x[m] = m == lane ? 1.0f : 0.0f;
-    trsm32_rcp<LDD>(x, Dm + TW * warp * LDD + TW * warp, rcp + TW * warp);
-    __syncwarp();  // the tile is read by every lane's solve before it is overwritten
-    float* dst = Xm + (TW * warp + lane) * LDD + TW * warp;
-#pragma unroll
-    for (int m = 0; m < TW; m += 4) *reinterpret_cast<float4*>(dst + m) = make_float4(x[m], x[m + 1], x[m + 2], x[m + 3]);
-    if (warp != 3) {
-      float* row = warp < 2 ? XR0 + TW * warp * LDR0 + TW * warp : XR2;
-      const int ldr = warp < 2 ? LDR0 : LDR2;
-#pragma unroll
-      for (int m = 0; m < TW; ++m) row[m * ldr + lane] = x[m];
-    }
-  }
-  __syncthreads();
-  // tiles (1, 0) and (3, 2)
-  const int s = tid >> 6;
-  const int j = 2 * s;
-  const int i = j + 1;
-  int r0 = 4 * (tid & 7);
-  int c0 = 4 * ((tid >> 3) & 7);
-  if (s < 2) {
-    const float* xr = s == 0 ? XR0 : XR2;
-    const int ldr = s == 0 ? LDR0 : LDR2;
-    float acc[4][4] = {};
-#pragma unroll 8
-    for (int k = 0; k < TW; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(Dm + (TW * j + k) * LDD + TW * i + r0);
-      const float4 b = *reinterpret_cast<const float4*>(xr + k * ldr + c0);
-      fma4x4(acc, a, b);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      *reinterpret_cast<float4*>(YR + (TW * s + r0 + u) * LDR2 + c0) = make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
-  }
-  __syncthreads();
-  if (s < 2) {
-    float acc[4][4] = {};
-#pragma unroll 8
-    for (int k = 0; k < TW; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(Xm + (TW * i + k) * LDD + TW * i + r0);
-      const float4 b = *reinterpret_cast<const float4*>(YR + (TW * s + k) * LDR2 + c0);
-      fma4x4(acc, a, b);
-    }
-#pragma unroll
-    for (int v = 0; v < 4; ++v)
-      *reinterpret_cast<float4*>(Xm + (TW * j + c0 + v) * LDD + TW * i + r0) =
-          make_float4(-acc[0][v], -acc[1][v], -acc[2][v], -acc[3][v]);
-    if (s == 0)
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        *reinterpret_cast<float4*>(XR0 + (TW + r0 + u) * LDR0 + c0) =
-            make_float4(-acc[u][0], -acc[u][1], -acc[u][2], -acc[u][3]);
-  }
-  __syncthreads();
-  // the lower left 64x64 block
-  r0 = 4 * (tid & 15);
-  c0 = 4 * (tid >> 4);
-  {
-    float acc[4][4] = {};
-#pragma unroll 8
-    for (int k = 0; k < 64; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(Dm + k * LDD + 64 + r0);
-      const float4 b = *reinterpret_cast<const float4*>(XR0 + k * LDR0 + c0);
-      fma4x4(acc, a, b);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      *reinterpret_cast<float4*>(YR + (r0 + u) * LDR0 + c0) = make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
-  }
-  __syncthreads();
-  {
-    float acc[4][4] = {};
-#pragma unroll 8
-    for (int k = 0; k < 64; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(Xm + (64 + k) * LDD + 64 + r0);
-      const float4 b = *reinterpret_cast<const float4*>(YR + k * LDR0 + c0);
-      fma4x4(acc, a, b);
-    }
-#pragma unroll
-    for (int v = 0; v < 4; ++v)
-      *reinterpret_cast<float4*>(Xm + (c0 + v) * LDD + 64 + r0) = make_float4(-acc[0][v], -acc[1][v], -acc[2][v], -acc[3][v]);
-  }
-  __syncthreads();
 }
 
 // Factor the diagonal block in Dm (its lower triangle) and invert it in

@@ -1,6 +1,6 @@
 // Warp-level building blocks for the small dense factorizations of K2
-// (chol_inverse.cu), K3 (chol_batched.cu) and K5 (block_probe.cu), f32, for
-// sm_90a.
+// (chol_inverse.cu), K3 (chol_batched.cu), K5 and K6 (block_probe.cu), f32,
+// for sm_90a.
 //
 // A 32x32 tile is factored by ONE warp in its registers (chol32), so its
 // 32 pivots pass values by shuffles and wait on no block barrier (about
@@ -200,6 +200,24 @@ __device__ __forceinline__ void store_4x4_t(float* dst, size_t ld, const float* 
     v.w = lower && 4 * kg + 3 > r ? 0.0f : c[3][u];
     *reinterpret_cast<float4*>(dst + (size_t)r * ld + 4 * kg) = v;
   }
+}
+
+// The e-th 4x4 block (rg, kg) of a tile of up to 128x128, as load_4x4_t
+// and store_4x4_t copy it: a warp takes 8 neighbouring kg and 4
+// neighbouring rg (no bank conflicts with LD % 32 == 4).
+__device__ __forceinline__ void block_of(int e, int& rg, int& kg) {
+  kg = (e & 7) + 8 * ((e >> 5) & 3);
+  rg = ((e >> 3) & 3) + 4 * (e >> 7);
+}
+
+// acc[u][v] += a[u] b[v]
+__device__ __forceinline__ void fma4x4(float (&acc)[4][4], float4 a, float4 b) {
+  const float av[4] = {a.x, a.y, a.z, a.w};
+  const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
 }
 
 // The tile (ti, tj), tj <= ti, of the x-th tile of a lower triangle of

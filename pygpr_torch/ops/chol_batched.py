@@ -13,11 +13,20 @@ On a CUDA tensor :func:`cholesky_batched` launches
 :func:`cholesky_batched_plain`, the same right-looking algorithm over
 64-wide panels in torch ops: each diagonal block factored as 2×2 tiles of
 32 as the kernel's warps do it (``csrc/small_chol.cuh``) and inverted,
-and the rows below it multiplied by the inverse's transpose.  n is padded
-to a multiple of 64 with an identity tail, as ``cholesky_pallas`` pads to
-128.  Neither version guards a non-positive pivot: its NaN fills the rest
-of that matrix's factor and no other, which is the per-matrix signal of
-the jitter ladder (``ops.linalg``).  Neither writes the caller's ``K``.
+and the rows below it multiplied by the inverse's transpose.  On
+``cholesky_pallas_batched``'s domain (:func:`batched_domain`) the plain
+version follows the schedule the kernel takes there for stacks large
+enough to keep the card busy: outer panels of 128 columns, each two
+64-wide panels, the second panel's columns brought up to date with the
+first's rows before it is factored, and the trailing matrix updated once
+an outer panel, each 64-wide panel's product subtracted on its own, in
+panel order.  In the kernel both schedules give every entry the same
+operations in the same order, and so the same bits.
+n is padded to a multiple of 64 with an identity tail, as
+``cholesky_pallas`` pads to 128.  Neither version guards a non-positive
+pivot: its NaN fills the rest of that matrix's factor and no other, which
+is the per-matrix signal of the jitter ladder (``ops.linalg``).  Neither
+writes the caller's ``K``.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ import torch
 PANEL = 64
 #: the diagonal block's sub-tile: one warp's factorization (csrc/small_chol.cuh)
 TILE = 32
+#: outer panel on :func:`batched_domain`; W in csrc/chol_batched.cu
+OUTER = 128
 
 
 def batched_domain(nb: int, n: int) -> bool:
@@ -93,29 +104,42 @@ def cholesky_batched_plain(K: torch.Tensor) -> torch.Tensor:
     tail = torch.arange(n, n_pad, device=K.device)
     W[:, tail, tail] = 1.0
     eye = torch.eye(PANEL, dtype=K.dtype, device=K.device).expand(nb, PANEL, PANEL)
-    for lo in range(0, n_pad, PANEL):
-        hi = lo + PANEL
-        D = _factor_diag(W[:, lo:hi, lo:hi])
-        W[:, lo:hi, lo:hi] = D
-        if hi < n_pad:
+    outer = OUTER if batched_domain(nb, n) else PANEL
+    for lo in range(0, n_pad, outer):
+        end = lo + outer
+        groups = []  # each 64-wide panel's rows below the outer panel
+        for s in range(lo, end, PANEL):
+            hi = s + PANEL
+            D = _factor_diag(W[:, s:hi, s:hi])
+            W[:, s:hi, s:hi] = D
+            if hi == n_pad:
+                break
             Dinv = torch.linalg.solve_triangular(D, eye, upper=False)
-            X = W[:, hi:, lo:hi] @ Dinv.mT
-            W[:, hi:, lo:hi] = X
-            # each panel's rank-64 product leaves the trailing matrix in
-            # order, as the kernel's does
-            W[:, hi:, hi:] -= X @ X.mT
+            X = W[:, hi:, s:hi] @ Dinv.mT
+            W[:, hi:, s:hi] = X
+            # the outer panel's later columns now, the trailing matrix after it
+            W[:, hi:, hi:end] -= X @ X[:, :end - hi].mT
+            groups.append(X[:, end - hi:])
+        # each panel's rank-64 product leaves the trailing matrix on its own,
+        # in panel order, as the kernel's does
+        for X in groups:
+            W[:, end:, end:] -= X @ X.mT
     L = torch.tril(W)[:, :n, :n]
     return L if K.ndim == 3 else L[0]
 
 
 def _lib():
+    """The kernel's C entry and the size of the scratch it needs."""
     from pygpr_torch.ops import _build
 
     lib = _build.load("chol_batched")
     fn = lib.chol_batched_f32
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    size = lib.chol_batched_scratch_floats
+    size.argtypes = [ctypes.c_int] * 3
+    size.restype = ctypes.c_longlong
+    return fn, size
 
 
 def cholesky_batched_cuda(K: torch.Tensor) -> torch.Tensor:
@@ -136,13 +160,18 @@ def cholesky_batched_cuda(K: torch.Tensor) -> torch.Tensor:
     nb = K.shape[0] if K.ndim == 3 else 1
     if K.numel() == 0:
         return torch.empty_like(K)
-    fn = _lib()
+    fn, scratch_floats = _lib()
     n_pad = _padded(n)
     opts = dict(dtype=torch.float32, device=K.device)
     L = torch.empty((nb, n_pad, n_pad), **opts)
-    diag = torch.empty((nb, PANEL, PANEL), **opts)  # the next diagonal block
+    # the next diagonal block; on a large stack in B5's domain also its
+    # inverse and the outer panel's rows, k-major
+    floats = scratch_floats(nb, n, n_pad)
+    if floats < 0:
+        raise RuntimeError("chol_batched kernel: could not read the CUDA device")
+    scratch = torch.empty((floats,), **opts)
     stream = torch.cuda.current_stream(K.device).cuda_stream
-    err = fn(K.data_ptr(), L.data_ptr(), diag.data_ptr(), nb, n, n_pad, stream)
+    err = fn(K.data_ptr(), L.data_ptr(), scratch.data_ptr(), nb, n, n_pad, stream)
     if err != 0:
         raise RuntimeError(f"chol_batched kernel launch failed: CUDA error {err}")
     cholesky_batched_cuda.launches += 1

@@ -70,18 +70,19 @@ def _factor_diag(A: torch.Tensor) -> torch.Tensor:
 
 
 def _invert_diag(D: torch.Tensor) -> torch.Tensor:
-    """X = D⁻¹ by recursive halving down to tiles of 32, each tile by a
-    triangular solve: X = [[X₀, 0], [−X₁ (D₁₀ X₀), X₁]]."""
-    nb = D.shape[0]
+    """X = D⁻¹ of a lower-triangular ``[..., nb, nb]`` by recursive halving
+    down to tiles of 32, each tile by a triangular solve:
+    X = [[X₀, 0], [−X₁ (D₁₀ X₀), X₁]].  Only the lower triangle is read."""
+    nb = D.shape[-1]
     if nb == TILE:
         return torch.linalg.solve_triangular(D, torch.eye(TILE, dtype=D.dtype, device=D.device), upper=False)
     h = nb // 2
-    X0 = _invert_diag(D[:h, :h])
-    X1 = _invert_diag(D[h:, h:])
+    X0 = _invert_diag(D[..., :h, :h])
+    X1 = _invert_diag(D[..., h:, h:])
     X = torch.zeros_like(D)
-    X[:h, :h] = X0
-    X[h:, h:] = X1
-    X[h:, :h] = -(X1 @ (D[h:, :h] @ X0))
+    X[..., :h, :h] = X0
+    X[..., h:, h:] = X1
+    X[..., h:, :h] = -(X1 @ (D[..., h:, :h] @ X0))
     return X
 
 

@@ -42,3 +42,30 @@ def test_sources_include_only_headers_of_csrc():
         text = (_build.CSRC / f"{name}.cu").read_text()
         for inc in re.findall(r'#include\s+"([^"]+)"', text):
             assert inc in headers, (name, inc)
+
+
+@pytest.mark.parametrize("mode", ["k2", "k3", "k6"])
+def test_compare_calls_the_entry_the_source_keeps(mode):
+    """K2, K3 and K6 keep their C entries across redesigns, so
+    ``python -m pygpr_torch.bench.compare`` calls an earlier version of each
+    by the entry the current source declares."""
+    from pygpr_torch.bench import compare
+
+    name, want = compare.OLD_ENTRIES[mode]
+    source = (_build.CSRC / f"{compare.SOURCES[mode]}.cu").read_text()
+    assert compare.entry_types(source, name) == want
+
+
+@pytest.mark.parametrize("mode", ["k3", "k6"])
+def test_compare_exits_without_a_card(mode, tmp_path, capsys):
+    """The card-only comparison fails, and builds nothing, where there is
+    no CUDA device."""
+    import torch
+
+    from pygpr_torch.bench import compare
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would build and time")
+    assert compare.main(["--kernel", mode, "--old", str(tmp_path)]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not any(tmp_path.iterdir())

@@ -62,7 +62,13 @@ def test_plain_matches_cholesky_pallas_batched(rng):
     np.testing.assert_allclose(L, np.linalg.cholesky(K.astype(np.float64)), atol=2e-4 * 256)
 
 
-@pytest.mark.parametrize("shape", [(200, 200), (3, 256, 256), (1, 1), (2, 64, 64)])
+@pytest.mark.parametrize(
+    "shape",
+    [(200, 200), (3, 256, 256), (1, 1), (2, 64, 64),
+     # B5's domain at 3 and 5 outer panels of 128, and a stack beside it
+     # (320 % 128 != 0) that keeps the 64-wide sweep
+     (3, 384, 384), (2, 640, 640), (2, 320, 320)],
+)
 def test_plain_f64_is_exact(shape, rng):
     K = _spd(rng, shape)
     Kt = torch.tensor(K)

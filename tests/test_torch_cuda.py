@@ -144,15 +144,38 @@ def test_chol_batched_kernel_nan_stays_in_its_matrix(dev):
         assert torch.equal(L[i], chol_batched.cholesky_batched_cuda(K[i].contiguous()))
 
 
-def test_chol_batched_stack_members_equal_their_factors_alone(dev):
-    """Each member of a [16, 768, 768] stack (cholesky_pallas_batched's
-    domain) bit-equal to the same matrix factored alone (cholesky_pallas's):
-    a matrix's arithmetic depends neither on nb nor on the route."""
-    K = _spd_stack(16, 768, dev, seed=1)
+@pytest.mark.parametrize("nb,n", [(16, 768), (4, 1536), (3, 2560), (16, 2048), (3, 4096)])
+def test_chol_batched_stack_members_equal_their_factors_alone(nb, n, dev):
+    """Each member of a stack in cholesky_pallas_batched's domain bit-equal
+    to the same matrix factored alone (cholesky_pallas's 64-wide sweep): a
+    matrix's arithmetic depends neither on nb nor on the launch sequence.
+    On an H100 the last two stacks take the outer panels of 128 (16 and 32
+    of them, the look-ahead across them, an odd nb), the first three the
+    64-wide sweep."""
+    K = _spd_stack(nb, n, dev, seed=1)
     L = chol_batched.cholesky_batched_cuda(K)
     torch.cuda.synchronize()
     assert torch.isfinite(L).all()
-    for i in range(16):
+    for i in range(nb):
+        assert torch.equal(L[i], chol_batched.cholesky_batched_cuda(K[i].contiguous()))
+
+
+def test_chol_batched_stack_nan_from_a_pivot_inside_an_outer_panel(dev):
+    """A negative diagonal entry at 586 of the middle matrix of a
+    [3, 4096, 4096] stack (outer panels of 128 on an H100), inside the
+    second 64-wide panel of the outer panel at 512: that matrix's columns
+    before it stay finite and every entry of its lower triangle from column
+    586 on is NaN; the other two are bit-equal to their factors alone."""
+    n = 4096
+    K = _spd_stack(3, n, dev, seed=4)
+    p = 512 + 64 + 10
+    K[1, p, p] = -1.0
+    L = chol_batched.cholesky_batched_cuda(K)
+    torch.cuda.synchronize()
+    assert torch.isfinite(L[1][:, :p]).all()
+    lower = torch.ones(n - p, n - p, dtype=torch.bool, device=dev).tril()
+    assert torch.isnan(L[1][p:, p:][lower]).all()
+    for i in (0, 2):
         assert torch.equal(L[i], chol_batched.cholesky_batched_cuda(K[i].contiguous()))
 
 
@@ -316,6 +339,21 @@ def test_pivots_kernel_nan_stays_in_its_block(dev):
     lower = torch.ones(128, 128, dtype=torch.bool, device=dev).tril()
     assert torch.isnan(L[2][lower]).all()
     assert torch.isfinite(L[[0, 1, 3]]).all()
+
+
+def test_tinv_kernel_zero_pivot_stays_in_its_block(dev):
+    """A zero pivot in block 2 of a strip of 4: that block's inverse is
+    not finite (no guard), and the other three match f64 within 1e-5 of
+    the largest entry, as in test_block_probe_kernels_match_plain_and_f64."""
+    _, trils = _block_strips(4, dev)
+    trils[2, 37, 37] = 0.0
+    T = mfu_probe.tinv_strip(trils.reshape(-1, 128)).reshape(4, 128, 128)
+    torch.cuda.synchronize()
+    assert not torch.isfinite(T[2]).all()
+    keep = [0, 1, 3]
+    T64 = torch.linalg.solve_triangular(trils[keep].double(), torch.eye(128, device=dev, dtype=torch.float64),
+                                        upper=False)
+    assert (T[keep].double() - T64).abs().max() <= 1e-5 * T64.abs().max()
 
 
 def test_block_probe_wrappers_raise_on_what_the_kernels_do_not_take(dev):

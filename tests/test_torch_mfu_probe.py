@@ -73,6 +73,22 @@ def test_tri_inverse_block_matches_jax(blocks):
     assert np.abs(got - blocks["tinv"]).max() <= TINV_ATOL
 
 
+def test_block_inverse_matches_jax_and_f64(blocks):
+    """K6's blocking (32×32 diagonal tiles by triangular solves, two
+    halving levels) against the JAX ``_tri_inverse`` in f32 within
+    ``TINV_ATOL`` (measured 1.5e-8, one ulp of the largest entry), and
+    against the port's copy of it, ``tri_inverse_block``, in f64 to 1e-12:
+    the same inverse by another blocking.  Only the lower triangle is read."""
+    Lt = blocks["Lt"]
+    got = mp.block_inverse(torch.tensor(Lt)).numpy()
+    assert np.abs(got - blocks["tinv"]).max() <= TINV_ATOL
+    assert (np.triu(got, 1) == 0).all()
+    Lt64 = torch.tensor(Lt, dtype=torch.float64)
+    np.testing.assert_allclose(mp.block_inverse(Lt64).numpy(), mp.tri_inverse_block(Lt64).numpy(), rtol=0, atol=1e-12)
+    upper_nan = Lt + np.triu(np.full((128, 128), np.nan, np.float32), 1)
+    assert np.array_equal(mp.block_inverse(torch.tensor(upper_nan)).numpy(), got)
+
+
 @pytest.mark.parametrize("which", ["pivots", "tinv"])
 def test_strip_wrappers_take_the_plain_versions_on_the_cpu(blocks, which):
     if which == "pivots":
