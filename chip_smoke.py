@@ -17,8 +17,13 @@ an Adam fit and CG predictions at n = 32768, held against f64 and the dense
 NLML on the card, its f32 gaps at n = 8192 beside the JAX package's, then
 one evaluation at n = 131072, where the dense path cannot run), the stage
 probe (``pygpr_torch.bench.mfu_probe`` at n = 2048
-and 8192) and every entry of ``pygpr_torch.bench`` at its defaults, and
-prints one JSON object per phase.  The last line is
+and 8192), every entry of ``pygpr_torch.bench`` at its defaults, the
+kernel families (the fast NLML of 13 of them at n = 4096 against f64 on
+the card, three fitted and served, a linear prior mean, known noise and
+four coregionalized tasks) and the reference PyGPR's own API under
+``pygpr_torch.compat``'s names (CG and Nelder-Mead over MLE, the quadratic
+solvers, the step size, the scikit-learn wrapper), and prints one JSON
+object per phase.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
 exits non-zero without it.  Without a CUDA device it exits 1 at once.
 Imports nothing of JAX or of the JAX package.
@@ -32,6 +37,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 
 #: published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and
 #: FP32 FFMA flop/s outside the tensor cores
@@ -159,6 +165,339 @@ def iterative_data(n, n_query=2048, seed=0):
     y = (np.sin(2.0 * x.sum(-1)) + 0.1 * rng.normal(size=n)).astype(np.float32)
     xs = rng.uniform(0, 4, (n_query, 2)).astype(np.float32)
     return x, y, xs
+
+
+#: f32 against f64 on the card for the fast NLML of each kernel family at
+#: n = 4096: the flagship's limits (PERF.md §2), value and gradient relative
+FAMILY_GAPS = (1e-4, 1e-2)
+#: a family whose first reading on an H100 exceeded them, held instead at
+#: 10x the JAX package's own f32-vs-f64 gaps on the same problem (its XLA
+#: path on a CPU: `JAX_PLATFORMS=cpu PYTHONPATH=. python
+#: tests/test_torch_kernel_families.py`).  ArcCosine(1): value 6.23e-3 and
+#: gradient 1.157e-2 there (the port read 1.27e-3 and 2.48e-3 on the card):
+#: its gram, near low rank on inputs in the positive orthant, under noise
+#: 0.1, leaves f32 with a condition number near 1e6
+FAMILY_GAPS_FROM_JAX = {"arccos1": (6.230111040561564e-2, 0.11566383335344755)}
+#: gram_adjoint against autograd through the gram in f64, rtol = atol: the
+#: JAX package's own tolerances (tests/test_kernels.py), 1e-6 where
+#: Matérn-½ is a part (autodiff's reference is noisy at a coincident pair)
+ADJOINT_TOL, ADJOINT_TOL_MATERN12 = 1e-9, 1e-6
+
+
+def family_problem(kind, n, seed=42):
+    """One kernel family's f32 data on make_data's generator: ``x [n, 3]``,
+    ``y``, and a function giving the noise-free target at queries.  "noise"
+    adds the known noise variance 0.01 (make_data's noise is 0.1²) as a
+    last column; "icm" splits the points into 4 tasks of n/4, task t a
+    copy of the target scaled by 1 + t/4, and appends the task index;
+    "trend" adds the trend 0.5·Σx."""
+    import numpy as np
+
+    x, y, _ = make_data(n, seed=seed)
+    noise = y - np.sin(2.0 * x.sum(-1))
+
+    def target(q):
+        base = np.sin(2.0 * q[:, :3].sum(-1))
+        if kind == "icm":
+            return ((1.0 + 0.25 * q[:, 3]) * base).astype(np.float32)
+        if kind == "trend":
+            return (base + 0.5 * q[:, :3].sum(-1)).astype(np.float32)
+        return base.astype(np.float32)
+
+    if kind == "noise":
+        x = np.concatenate([x, np.full((n, 1), 0.01, np.float32)], axis=1)
+    elif kind == "icm":
+        x = np.concatenate([x, (np.arange(n) // (n // 4))[:, None].astype(np.float32)], axis=1)
+    if kind in ("icm", "trend"):
+        y = (target(x) + noise).astype(np.float32)
+    return x, y, target
+
+
+def family_queries(kind, m, seed=7):
+    """``m`` queries for :func:`family_problem`'s data: a zero noise column
+    (the latent f) for "noise", the 4 tasks in turn for "icm"."""
+    import numpy as np
+
+    q = np.random.default_rng(seed).uniform(0.0, 2.0, size=(m, 3)).astype(np.float32)
+    if kind == "noise":
+        return np.concatenate([q, np.zeros((m, 1), np.float32)], axis=1)
+    if kind == "icm":
+        return np.concatenate([q, (np.arange(m) % 4)[:, None].astype(np.float32)], axis=1)
+    return q
+
+
+def kernel_families(pkg):
+    """The ``kernel_families`` phase's ``(name, kernel, data kind)``, built
+    from ``pkg``, a namespace with the JAX package's kernel class names:
+    ``pygpr_torch`` here, ``pygpr_tpu`` in the CPU script that reads the
+    JAX package's own f32-vs-f64 gaps on the same problems
+    (``tests/test_torch_kernel_families.py``, run as a script)."""
+    return [
+        ("matern12", pkg.Sum((pkg.Matern(0.5), pkg.WhiteNoise())), "plain"),
+        ("matern32", pkg.Sum((pkg.Matern(1.5), pkg.WhiteNoise())), "plain"),
+        ("matern52", pkg.Sum((pkg.Matern(2.5), pkg.WhiteNoise())), "plain"),
+        ("rational_quadratic", pkg.Sum((pkg.RationalQuadratic(), pkg.WhiteNoise())), "plain"),
+        ("rbf_x_periodic", pkg.Sum((pkg.Product((pkg.RBF(), pkg.Periodic())), pkg.WhiteNoise())), "plain"),
+        ("spectral_mixture4", pkg.Sum((pkg.SpectralMixture(4), pkg.WhiteNoise())), "plain"),
+        ("linear_constant_rbf", pkg.Sum((pkg.Linear(), pkg.Constant(), pkg.RBF(), pkg.WhiteNoise())), "plain"),
+        ("arccos1", pkg.Sum((pkg.ArcCosine(1), pkg.WhiteNoise())), "plain"),
+        ("separable_matern52", pkg.Sum((pkg.Separable("matern52"), pkg.WhiteNoise())), "plain"),
+        ("active_dims", pkg.Sum((pkg.ActiveDims(pkg.RBF(), (0, 1)), pkg.WhiteNoise())), "plain"),
+        ("changepoint", pkg.Sum((pkg.ChangePoint(pkg.RBF(), pkg.Matern(1.5)), pkg.WhiteNoise())), "plain"),
+        ("fixed_noise", pkg.FixedNoise(pkg.Matern(2.5)), "noise"),
+        ("icm", pkg.Sum((pkg.ICM(pkg.RBF(), 4, 1), pkg.TaskNoise(4))), "icm"),
+    ]
+
+
+def family_params(pkg, kern, x, data_init=True):
+    """A family's f32 start: the kernel's init with the white noise and the
+    task noise at 0.1 and, with ``data_init``, the spectral mixture from
+    its ``init_from_data`` (the fits start it from its all-ones init: the
+    data init's frequencies, up to the Nyquist rate of the median spacing
+    along each axis, are far above this target's on a random 3-D design)."""
+    import numpy as np
+
+    p = np.array(kern.init_params(x), dtype=np.float32)
+    lo = 0
+    for k in getattr(kern, "kernels", (kern,)):
+        hi = lo + k.n_params(x.shape[-1])
+        if isinstance(k, (pkg.WhiteNoise, pkg.TaskNoise)):
+            p[lo:hi] = 0.1
+        elif isinstance(k, pkg.SpectralMixture) and data_init:
+            p[lo:hi] = k.init_from_data(x, seed=0)
+        lo = hi
+    return p
+
+
+def api_phases(h, n=4096, n_nm=1024):
+    """The reference's own API and the kernel families, on the card.
+
+    ``h`` carries main()'s helpers (dev, check, zero_counts, read_counts,
+    wrappers, to_dev, timed, warm).  Phases: ``kernel_families`` (the fast
+    NLML of each family at n: value and gradient against f64 on the card,
+    ms per evaluation, K1 and K2 launches, and each gram adjoint against
+    autograd in f64 at 1024 points with a coincident pair),
+    ``kernel_families_fit`` (fit_mle and predict for three families),
+    ``means_and_structure`` (fit_gp_mean with LinearMean, FixedNoise and
+    ICM fitted and served) and ``reference_api`` (the reference's session
+    under pygpr_torch.compat's names: Exact_GP, MLE and CG at n;
+    Nelder_Mead at n_nm; CG_Quad, BFGS_Quad and get_learn_rate at n;
+    SK_WRAP with optimize=True)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import pygpr_torch as gp
+    from pygpr_torch import compat
+    from pygpr_torch.models import means
+
+    check, to_dev, timed = h.check, h.to_dev, h.timed
+
+    def rmse(mean, truth):
+        return float(torch.sqrt(torch.mean((mean - truth) ** 2)))
+
+    def serve_checks(phase, name, mean, var, truth):
+        r = rmse(mean, truth)
+        return r, [check(phase, f"{name}: rmse {r} >= 0.1", r < 0.1),
+                   check(phase, f"{name}: variance not finite and > 0",
+                         bool(torch.isfinite(var).all() and (var > 0).all()))]
+
+    # -- kernel families: the fast NLML at n, f32 against f64 on the card --
+    arng = np.random.default_rng(17)
+    for name, kern, kind in kernel_families(gp):
+        xn, yn, _ = family_problem(kind, n)
+        pn = family_params(gp, kern, xn)
+        x, y, p = to_dev(xn, yn, pn)
+        h.zero_counts()
+        v, g = gp.nlml_value_and_grad(kern, p, x, y)
+        ms, _ = h.warm(lambda: gp.nlml_value_and_grad(kern, p, x, y))
+        c = h.read_counts()
+        x64, y64, p64 = to_dev(xn, yn, pn, dtype=torch.float64)
+        v64, g64 = gp.nlml_value_and_grad(kern, p64, x64, y64)
+        rel_v = abs(v.item() - v64.item()) / abs(v64.item())
+        rel_g = (torch.linalg.norm(g.double() - g64) / torch.linalg.norm(g64)).item()
+        lim_v, lim_g = FAMILY_GAPS_FROM_JAX.get(name, FAMILY_GAPS)
+        checks = [
+            check("kernel_families", f"{name}: non-finite", bool(torch.isfinite(v) and torch.isfinite(g).all())),
+            check("kernel_families", f"{name}: value rel {rel_v} > {lim_v}", rel_v <= lim_v),
+            check("kernel_families", f"{name}: grad rel {rel_g} > {lim_g}", rel_g <= lim_g),
+            check("kernel_families", f"{name}: K2 not launched {c}", c["k2"] > 0),
+            check("kernel_families", f"{name}: K1 launched {c}", c["k1"] == 0),
+        ]
+        # the gram adjoint against autograd through the gram, f64, 1024
+        # points with one coincident pair
+        n_adj = min(1024, n)
+        x1 = x64[:n_adj].clone()
+        x1[7] = x1[3]
+        a = torch.as_tensor(arng.standard_normal((n_adj, n_adj)), dtype=torch.float64, device=h.dev)
+        abar = 0.5 * (a + a.T)
+        ga = kern.gram_adjoint(p64, x1, abar)
+        adj_err = tol = None
+        if ga is not None:
+            q = p64.clone().requires_grad_(True)
+            (vjp,) = torch.autograd.grad(gp.train_gram(kern, q, x1), q, abar)
+            tol = ADJOINT_TOL_MATERN12 if name == "matern12" else ADJOINT_TOL
+            # assert_allclose's rule, |a − b| ≤ atol + rtol·|b|, as a ratio
+            adj_err = ((ga - vjp).abs() / (tol + tol * vjp.abs())).max().item()
+            checks.append(check("kernel_families", f"{name}: gram_adjoint off autograd by {adj_err} x tol",
+                                adj_err <= 1.0))
+        emit({"phase": "kernel_families", "family": name, "n": n, "nhp": len(pn), "value": v.item(),
+                "value_f64": v64.item(), "grad": g.tolist(), "rel_err_value": rel_v, "rel_err_grad": rel_g,
+                "limits": [lim_v, lim_g], "ms_per_eval": 1e3 * ms, "launches_k1": c["k1"], "launches_k2": c["k2"],
+                "gram_adjoint": ga is not None, "adjoint_err_over_tol": adj_err, "adjoint_tol": tol,
+                "ok": all(checks)})
+        del x, y, x64, y64, a, abar
+    torch.cuda.empty_cache()
+
+    # -- kernel families fitted and served ---------------------------------
+    xq_np = family_queries("plain", n)
+    (xq,) = to_dev(xq_np)
+    truth = torch.sin(2.0 * xq.sum(-1))
+    for name, kern in (("matern52", gp.Sum((gp.Matern(2.5), gp.WhiteNoise()))),
+                       ("rbf_x_periodic", gp.Sum((gp.RBF() * gp.Periodic(), gp.WhiteNoise()))),
+                       ("spectral_mixture4", gp.Sum((gp.SpectralMixture(4), gp.WhiteNoise())))):
+        xn, yn, _ = family_problem("plain", n)
+        x, y, p = to_dev(xn, yn, family_params(gp, kern, xn, data_init=False))
+        h.zero_counts()
+        v0 = gp.nlml(kern, p, x, y).item()
+        res, fit_s = timed(lambda: gp.fit_mle(kern, p, x, y, max_iter=30))
+        state = gp.factorize(kern, res.params, x, y)
+        (mean, var), predict_s = timed(lambda: gp.predict(kern, state, xq, var="diag"))
+        c = h.read_counts()
+        r, serve = serve_checks("kernel_families_fit", name, mean, var, truth)
+        checks = [check("kernel_families_fit", f"{name}: NLML did not fall {v0} -> {res.value.item()}",
+                        res.value.item() < v0),
+                  check("kernel_families_fit", f"{name}: non-finite params", bool(torch.isfinite(res.params).all())),
+                  check("kernel_families_fit", f"{name}: K2 not launched {c}", c["k2"] > 0)] + serve
+        emit({"phase": "kernel_families_fit", "family": name, "n": n, "queries": n, "nlml_start": v0,
+                "nlml_fit": res.value.item(), "iters": int(res.iters), "params": res.params.tolist(),
+                "fit_s": fit_s, "predict_s": predict_s, "predictions_per_s": n / predict_s, "rmse": r,
+                "launches": c, "ok": all(checks)})
+        del x, y, state, mean, var
+    torch.cuda.empty_cache()
+
+    # -- means and structure ------------------------------------------------
+    # fit_gp_mean: LinearMean on the target plus the trend 0.5·Σx
+    kern = gp.Sum((gp.RBF(), gp.WhiteNoise()))
+    mean_fn = gp.LinearMean()
+    xn, yn, target = family_problem("trend", n)
+    x, y = to_dev(xn, yn)
+    theta0 = means.init_params_joint(kern, mean_fn, x, y)
+    theta0[kern.n_params(3) - 1] = 0.1
+    h.zero_counts()
+    v0 = means.nlml_mean(kern, mean_fn, theta0, x, y).item()
+    res, fit_s = timed(lambda: gp.fit_gp_mean(kern, mean_fn, x, y, theta0, max_iter=30))
+    state = means.factorize_mean(kern, mean_fn, res.params, x, y)
+    (mu, var), predict_s = timed(lambda: means.predict_mean(kern, mean_fn, res.params, state, xq, "diag"))
+    c = h.read_counts()
+    (tq,) = to_dev(target(xq_np))
+    r, serve = serve_checks("means_and_structure", "fit_gp_mean", mu, var, tq)
+    checks = [check("means_and_structure", f"fit_gp_mean: NLML did not fall {v0} -> {res.value.item()}",
+                    res.value.item() < v0),
+              check("means_and_structure", f"fit_gp_mean: K2 not launched {c}", c["k2"] > 0)] + serve
+    emit({"phase": "means_and_structure", "model": "fit_gp_mean", "kernel": "Sum(RBF, WhiteNoise)",
+            "mean": "LinearMean", "n": n, "nlml_start": v0, "nlml_fit": res.value.item(), "iters": int(res.iters),
+            "params": res.params.tolist(), "fit_s": fit_s, "predict_s": predict_s, "rmse": r, "launches": c,
+            "ok": all(checks)})
+    del x, y, state
+    # FixedNoise with the known noise column, and ICM on 4 tasks of n/4
+    for name, kern, kind in (("fixed_noise", gp.FixedNoise(gp.Matern(2.5)), "noise"),
+                             ("icm", gp.Sum((gp.ICM(gp.RBF(), 4, 1), gp.TaskNoise(4))), "icm")):
+        xn, yn, target = family_problem(kind, n)
+        qn = family_queries(kind, n)
+        x, y, p, q, tq = to_dev(xn, yn, family_params(gp, kern, xn), qn, target(qn))
+        h.zero_counts()
+        v0 = gp.nlml(kern, p, x, y).item()
+        res, fit_s = timed(lambda: gp.fit_mle(kern, p, x, y, max_iter=30))
+        state = gp.factorize(kern, res.params, x, y)
+        (mu, var), predict_s = timed(lambda: gp.predict(kern, state, q, var="diag"))
+        c = h.read_counts()
+        r, serve = serve_checks("means_and_structure", name, mu, var, tq)
+        checks = [check("means_and_structure", f"{name}: NLML did not fall {v0} -> {res.value.item()}",
+                        res.value.item() < v0),
+                  check("means_and_structure", f"{name}: non-finite params", bool(torch.isfinite(res.params).all())),
+                  check("means_and_structure", f"{name}: K2 not launched {c}", c["k2"] > 0)] + serve
+        emit({"phase": "means_and_structure", "model": name, "n": n, "nlml_start": v0,
+                "nlml_fit": res.value.item(), "iters": int(res.iters), "params": res.params.tolist(),
+                "fit_s": fit_s, "predict_s": predict_s, "rmse": r, "launches": c, "ok": all(checks)})
+        del x, y, state
+    torch.cuda.empty_cache()
+
+    # -- the reference's session under compat's names -------------------------
+    xn, yn, pn = make_data(n)
+    x, y = to_dev(xn, yn)
+    with tempfile.TemporaryDirectory() as tmp:
+        cov = compat.Compose([compat.Squared_exponential(), compat.White_noise()])
+        model = compat.Exact_GP(x, y, cov)
+        model.set_params(pn)
+        loss = compat.MLE(model)
+        out = {"phase": "reference_api", "n": n}
+        checks = []
+
+        h.zero_counts()
+        v0 = loss.loss(pn.astype(np.float64))
+        cg = compat.CG(loss, trace_path=os.path.join(tmp, "cg.dat"))
+        cg.args["maxiter"] = 50
+        _, secs = timed(cg.minimize)
+        c = h.read_counts()
+        v1 = loss.loss(cg.x)
+        checks += [check("reference_api", f"CG: loss did not fall {v0} -> {v1}", v1 < v0),
+                   check("reference_api", f"CG: K1 and K2 not launched {c}", min(c["k1"], c["k2"]) > 0)]
+        out["cg"] = {"loss_start": v0, "loss_end": v1, "nit": int(cg.res.nit), "nfev": int(cg.res.nfev),
+                     "success": bool(cg.res.success), "seconds": secs, "launches": c}
+
+        small = compat.Exact_GP(x[:n_nm], y[:n_nm], cov)
+        small.set_params(pn)
+        loss_nm = compat.MLE(small)
+        h.zero_counts()
+        v0 = loss_nm.loss(pn.astype(np.float64))
+        nm = compat.Nelder_Mead(loss_nm, trace_path=os.path.join(tmp, "nm.dat"))
+        nm.args["maxiter"] = 300
+        _, secs = timed(nm.minimize)
+        c = h.read_counts()
+        k3_shapes = dict(h.wrappers["k3"].shapes)
+        v1 = loss_nm.loss(nm.x)
+        checks += [check("reference_api", f"Nelder_Mead: loss did not fall {v0} -> {v1}", v1 < v0),
+                   check("reference_api", f"Nelder_Mead: K3 on [{n_nm}, {n_nm}] not launched {k3_shapes}",
+                         k3_shapes.get((1, n_nm), 0) > 0)]
+        out["nelder_mead"] = {"n": n_nm, "loss_start": v0, "loss_end": v1, "nit": int(nm.res.nit),
+                              "nfev": int(nm.res.nfev), "success": bool(nm.res.success), "seconds": secs,
+                              "launches": c, "k3_shapes": {str(list(k)): v for k, v in k3_shapes.items()}}
+
+        for key, cls in (("cg_quad", compat.CG_Quad), ("bfgs_quad", compat.BFGS_Quad)):
+            opt = cls(loss, max_iter=10, trace_path=os.path.join(tmp, f"{key}.dat"))
+            h.zero_counts()
+            k, secs = timed(lambda: opt.minimize(par=pn.astype(np.float64)))
+            c = h.read_counts()
+            checks.append(check("reference_api", f"{key}: non-finite iterate {opt.x}", bool(np.isfinite(opt.x).all())))
+            out[key] = {"iters": k, "x": opt.x.tolist(), "grad_norm": float(np.linalg.norm(opt.r)),
+                        "seconds": secs, "launches": c}
+
+        h.zero_counts()
+        gamma, secs = timed(lambda: compat.get_learn_rate(pn.astype(np.float64), loss, 1e-3))
+        c = h.read_counts()
+        checks.append(check("reference_api", f"get_learn_rate: step {gamma} not finite", np.isfinite(gamma)))
+        out["get_learn_rate"] = {"gamma": gamma, "seconds": secs, "launches": c}
+
+        sk_model = gp.ExactGP(x, y, gp.Sum((gp.RBF(), gp.WhiteNoise())))
+        sk_model.set_params(pn)
+        sk = compat.SK_WRAP(sk_model, optimize=True, max_iter=30)
+        h.zero_counts()
+        _, fit_s = timed(lambda: sk.fit(xn, yn))
+        (mean, std), predict_s = timed(lambda: sk.predict(xq_np, return_std=True))
+        c = h.read_counts()
+        r = float(np.sqrt(np.mean((mean - np.sin(2.0 * xq_np.sum(-1))) ** 2)))
+        checks += [check("reference_api", f"SK_WRAP: rmse {r} >= 0.1", r < 0.1),
+                   check("reference_api", "SK_WRAP: std not finite and > 0",
+                         bool(np.isfinite(std).all() and (std > 0).all()))]
+        out["sk_wrap"] = {"fit_s": fit_s, "predict_s": predict_s, "rmse": r, "launches": c}
+        out["trace_lines"] = {f: len(open(os.path.join(tmp, f)).readlines()) for f in sorted(os.listdir(tmp))}
+    out["ok"] = all(checks)
+    emit(out)
+    del x, y, model, small, sk_model, sk
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1204,6 +1543,12 @@ def main() -> int:
         emit({"phase": "bench", "entry": name, "record": rec, "seconds": secs, "launches": c, **extra,
               "ok": all(checks)})
         torch.cuda.empty_cache()
+
+    # -- 10b. the reference's own API and the kernel families -----------------
+    t0 = time.perf_counter()
+    api_phases(types.SimpleNamespace(dev=dev, check=check, zero_counts=zero_counts, read_counts=read_counts,
+                                     wrappers=wrappers, to_dev=to_dev, timed=timed, warm=warm))
+    emit({"phase": "api_phases", "seconds": time.perf_counter() - t0})
 
     # -- 11. the main path's kernel time by shape -----------------------------
     # every shape each kernel was launched at on the main path, timed on

@@ -2,27 +2,47 @@
 
 A second package beside the JAX one, which stays the reference.  It
 covers the exact GP (the NLML and its fast gradient, the L-BFGS fit,
-factorize, predict, posterior draws and online extension) and the grBCM
-committee (fit, factorize, aggregate, serve) with the PoE family, on
-``Sum((RBF(), WhiteNoise()))`` and its parts, plus the designs that
-partition a committee, the matrix-free iterative GP (Krylov NLML, Adam
-fit, CG predict) and sparse SGPR (collapsed ELBO, L-BFGS fit, predict) on
-the bare ``RBF()``, and the benchmark entry points (``pygpr_torch.bench``,
-with its stage probe ``pygpr_torch.bench.mfu_probe``).  On an NVIDIA H100
-the train gram, the fused Cholesky plus triangular inverse, the batched
-Cholesky, the fused gram-matvec and the probe's per-block Cholesky and
-triangular inverse run in hand-written CUDA kernels
-(``pygpr_torch/csrc``), built with ``nvcc`` at first use.
+factorize, predict, posterior draws and online extension) on every
+kernel of the JAX package (``RBF``, ``WhiteNoise``, ``Sum``, ``Product``,
+``Matern``, ``RationalQuadratic``, ``Periodic``, ``Constant``,
+``SpectralMixture``, ``Linear``, ``ArcCosine``, ``Separable``,
+``ActiveDims``, ``ChangePoint``), the multi-output ``ICM`` and
+``TaskNoise``, the known-noise ``FixedNoise`` and the prior means
+(``means``, ``fit_gp_mean``); the reference PyGPR's own API (the SciPy
+drivers ``CG`` and ``NelderMead``, the quadratic solvers, the parabolic
+step size, ``OptTrace``, the scikit-learn wrapper ``SKWrap``, and
+``pygpr_torch.compat``, the reference's spellings); the grBCM committee
+(fit, factorize, aggregate, serve) with the PoE family, plus the designs
+that partition a committee, the matrix-free iterative GP (Krylov NLML,
+Adam fit, CG predict) and sparse SGPR (collapsed ELBO, L-BFGS fit,
+predict) on the bare ``RBF()``, and the benchmark entry points
+(``pygpr_torch.bench``, with its stage probe
+``pygpr_torch.bench.mfu_probe``).  On an NVIDIA H100 the train gram of
+``Sum((RBF(), WhiteNoise()))``, the fused Cholesky plus triangular
+inverse, the batched Cholesky, the fused gram-matvec and the probe's
+per-block Cholesky and triangular inverse run in hand-written CUDA
+kernels (``pygpr_torch/csrc``), built with ``nvcc`` at first use.
 
 Tensors run on their own device.  NumPy inputs go to ``device="cuda"``
 unless the caller passes ``device="cpu"``; without a GPU that raises.
 The namespace is flat, as the JAX package's is.
 """
 
-from pygpr_torch.config import DEFAULT, Config, as_tensor
+from pygpr_torch.config import DEFAULT, Config, as_tensor, default_dtype
 from pygpr_torch.ops.kernels import (
     RBF,
+    ActiveDims,
+    ArcCosine,
+    ChangePoint,
+    Constant,
     Kernel,
+    Linear,
+    Matern,
+    Periodic,
+    Product,
+    RationalQuadratic,
+    Separable,
+    SpectralMixture,
     Sum,
     WhiteNoise,
     kernel_and_grad,
@@ -59,12 +79,31 @@ from pygpr_torch.models.likelihood import (
     nlml_fast,
     nlml_value_and_grad,
 )
-from pygpr_torch.models import committee, grbcm, iterative, metrics, priors, sgpr
+from pygpr_torch.models import committee, grbcm, iterative, means, metrics, priors, sgpr
+from pygpr_torch.ops.coregion import ICM, TaskNoise, stack_outputs, with_task
+from pygpr_torch.ops.fixed_noise import FixedNoise, with_noise
+from pygpr_torch.models.means import ConstantMean, LinearMean, Mean, ZeroMean, fit_gp_mean
+from pygpr_torch.models.priors import Gamma, HalfNormal, LogNormal
 from pygpr_torch.models.grbcm import GRBCM
 from pygpr_torch.models.iterative import IterativeGP
 from pygpr_torch.models.sgpr import SGPR
 from pygpr_torch.models.metrics import loo_cv, loo_nlpd
 from pygpr_torch.models.committee import aggregate_committee, fit_committee, predict_committee
-from pygpr_torch.optimize.lbfgs import FitResult, fit_map, fit_mle, minimize_lbfgs
-from pygpr_torch import convert, sample
-from pygpr_torch.sample import Matern1, Sobol, Uniform, cluster_samples, sample_gp
+from pygpr_torch.optimize import (
+    CG,
+    BFGSQuad,
+    CGQuad,
+    FitResult,
+    NelderMead,
+    Opt,
+    fit_map,
+    fit_mle,
+    get_learn_rate,
+    hessian,
+    learn_rate,
+    minimize_lbfgs,
+)
+from pygpr_torch import convert, interop, optimize, sample, utils
+from pygpr_torch.sample import Matern1, Sobol, Uniform, cluster_samples, euclidean_dist, sample_gp
+from pygpr_torch.interop import SK_WRAP, SKWrap
+from pygpr_torch.utils import OptTrace

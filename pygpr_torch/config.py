@@ -51,6 +51,13 @@ class Config:
 DEFAULT = Config()
 
 
+def default_dtype(device=None) -> torch.dtype:
+    """The port's float type on ``device`` (``"cuda"`` unless given):
+    f64 on the CPU (parity with the reference), f32 on a CUDA device.
+    The JAX package's ``default_dtype()`` reads the x64 switch instead."""
+    return torch.float64 if torch.device("cuda" if device is None else device).type == "cpu" else torch.float32
+
+
 def as_tensor(a, device=None) -> torch.Tensor:
     """Device policy of the entry points that take NumPy input.
 

@@ -6,8 +6,13 @@ of ``pygpr_tpu``
 becomes the port's own through ``np.asarray`` of each field; nothing here
 imports the JAX package.  The packed parameter order is the same in both, e.g.
 ``[σ, ℓ₁..ℓ_d, σₙ]`` for ``Sum((RBF(), WhiteNoise()))``, so the kernel
-expression is rebuilt from the port's classes by name
-(:func:`kernel_from_names`).
+expression is rebuilt from the port's classes: by name
+(:func:`kernel_from_names`), or, for kernels that take arguments
+(``nu``, ``order``, ``q``, ``profile``, ``dims``, ``axis``,
+``n_outputs``, ``rank``, children), from a plain nested description
+(:func:`kernel_spec` reads it off either package's kernel,
+:func:`kernel_from_spec` builds the port's).  Means likewise
+(:func:`mean_from_spec`).
 """
 
 from __future__ import annotations
@@ -17,19 +22,70 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from pygpr_torch.models import means
 from pygpr_torch.models.exact_gp import GPState
 from pygpr_torch.config import DEFAULT, Config
 from pygpr_torch.models.grbcm import FitInfo
 from pygpr_torch.models.iterative import IterativeGP
 from pygpr_torch.models.sgpr import SGPRState
-from pygpr_torch.ops.kernels import RBF, Kernel, Sum, WhiteNoise
+from pygpr_torch.ops import coregion, fixed_noise, kernels
+from pygpr_torch.ops.kernels import Kernel, Sum
 
-_KERNELS = {"RBF": RBF, "WhiteNoise": WhiteNoise}
+#: every kernel class of the port by name, for :func:`kernel_from_spec`
+_SPEC_KERNELS = {
+    cls.__name__: cls
+    for cls in (kernels.RBF, kernels.WhiteNoise, kernels.Sum, kernels.Product, kernels.Matern, kernels.ArcCosine,
+                kernels.RationalQuadratic, kernels.Periodic, kernels.Constant, kernels.SpectralMixture,
+                kernels.Linear, kernels.Separable, kernels.ActiveDims, kernels.ChangePoint, coregion.ICM,
+                coregion.TaskNoise, fixed_noise.FixedNoise)
+}
+#: the arguments each kernel class takes besides its children
+_SPEC_ARGS = {"Matern": ("nu",), "ArcCosine": ("order",), "SpectralMixture": ("q",), "Separable": ("profile",),
+              "ActiveDims": ("dims",), "ChangePoint": ("axis",), "ICM": ("n_outputs", "rank"),
+              "TaskNoise": ("n_outputs",)}
+#: where each kernel class keeps its children, in its constructor's order
+_SPEC_CHILDREN = {"Sum": "kernels", "Product": "kernels", "ActiveDims": ("base",), "FixedNoise": ("base",),
+                  "ICM": ("base",), "ChangePoint": ("k1", "k2")}
+#: the kernel classes that take no arguments, for :func:`kernel_from_names`
+_KERNELS = {n: cls for n, cls in _SPEC_KERNELS.items() if n not in _SPEC_ARGS and n not in _SPEC_CHILDREN}
+_MEANS = {cls.__name__: cls for cls in (means.ZeroMean, means.ConstantMean, means.LinearMean)}
+
+
+def kernel_spec(kern) -> tuple:
+    """``(class name, {argument: value}, [child specs])`` of a kernel of
+    either package, read off its attributes, e.g.
+    ``("Sum", {}, [("Matern", {"nu": 2.5}, []), ("WhiteNoise", {}, [])])``."""
+    name = type(kern).__name__
+    args = {a: getattr(kern, a) for a in _SPEC_ARGS.get(name, ())}
+    where = _SPEC_CHILDREN.get(name, ())
+    children = getattr(kern, where) if isinstance(where, str) else [getattr(kern, a) for a in where]
+    return name, args, [kernel_spec(k) for k in children]
+
+
+def kernel_from_spec(spec) -> Kernel:
+    """The port's kernel for a description from :func:`kernel_spec`."""
+    name, args, children = spec
+    if name not in _SPEC_KERNELS:
+        raise ValueError(f"no port of kernel {name!r}; the port has {sorted(_SPEC_KERNELS)}")
+    kids = [kernel_from_spec(c) for c in children]
+    if _SPEC_CHILDREN.get(name) == "kernels":
+        return _SPEC_KERNELS[name](kids)
+    return _SPEC_KERNELS[name](*kids, **args)
+
+
+def mean_from_spec(spec) -> means.Mean:
+    """The port's mean for its class name (``"LinearMean"``) or
+    ``(name, {})``, as the JAX package's mean classes take no arguments."""
+    name = spec if isinstance(spec, str) else spec[0]
+    if name not in _MEANS:
+        raise ValueError(f"no port of mean {name!r}; the port has {sorted(_MEANS)}")
+    return _MEANS[name]()
 
 
 def kernel_from_names(*names: str) -> Kernel:
-    """The port's kernel for the JAX kernel's class names: one name gives
-    that kernel, several their ``Sum`` in the order given."""
+    """The port's kernel for the JAX kernel's class names, of classes that
+    take no arguments: one name gives that kernel, several their ``Sum``
+    in the order given."""
     unknown = [n for n in names if n not in _KERNELS]
     if unknown or not names:
         raise ValueError(f"no port of kernel(s) {unknown or names}; the port has {sorted(_KERNELS)}")

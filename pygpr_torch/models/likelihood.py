@@ -60,11 +60,12 @@ def nlml(kern: Kernel, params, x, y, config: Config = DEFAULT) -> Tensor:
     return _nlml_one(kern, params, x, y, config)
 
 
-def _nlml_vg_fast_one(kern, params, x, y, config) -> Tuple[Tensor, Tensor]:
-    """Closed-form value and gradient with no triangular solves.
+def _nlml_vg_fast_one(kern, params, x, y, config) -> Tuple[Tensor, Tensor, Tensor]:
+    """Closed-form value and gradient with no triangular solves, and
+    ``w = K⁻¹y`` (the NLML's gradient with respect to y).
 
     The NLML's adjoint with respect to the gram is ``½(K⁻¹ − wwᵀ)``,
-    ``w = K⁻¹y``, so the gradient is one contraction against ∂K/∂θ:
+    so the gradient is one contraction against ∂K/∂θ:
 
         z = T y,  w = Tᵀ z,  K⁻¹ = TᵀT
 
@@ -88,7 +89,7 @@ def _nlml_vg_fast_one(kern, params, x, y, config) -> Tuple[Tensor, Tensor]:
         p = params.clone().requires_grad_(True)
         with torch.enable_grad():
             (grad,) = torch.autograd.grad(train_gram(kern, p, x, config), p, Abar)
-    return val, grad
+    return val, grad, w
 
 
 def nlml_value_and_grad(kern: Kernel, params, x, y, config: Config = DEFAULT) -> Tuple[Tensor, Tensor]:
@@ -101,8 +102,8 @@ def nlml_value_and_grad(kern: Kernel, params, x, y, config: Config = DEFAULT) ->
                 _nlml_vg_fast_one(kern, params[i] if params.ndim == 2 else params, x[i], y[i], config)
                 for i in range(nc)
             ]
-            return torch.stack([v for v, _ in outs]), torch.stack([g for _, g in outs])
-        return _nlml_vg_fast_one(kern, params, x, y, config)
+            return torch.stack([v for v, _, _ in outs]), torch.stack([g for _, g, _ in outs])
+        return _nlml_vg_fast_one(kern, params, x, y, config)[:2]
     if x.ndim == 3:
         # experts are independent: per-expert gradients are the gradient
         # of the sum over the batch-visible stack
@@ -120,26 +121,28 @@ def nlml_value_and_grad(kern: Kernel, params, x, y, config: Config = DEFAULT) ->
 
 
 class _NlmlFast(torch.autograd.Function):
-    """NLML whose backward is the fast closed-form gradient."""
+    """NLML whose backward is the fast closed-form gradient (and ``K⁻¹y``
+    for a target that needs one, such as a mean's residual)."""
 
     @staticmethod
     def forward(ctx, params, x, y, kern, config):
-        val, grad = _nlml_vg_fast_one(kern, params, x, y, config)
-        ctx.save_for_backward(grad)
+        val, grad, w = _nlml_vg_fast_one(kern, params, x, y.detach(), config)
+        ctx.save_for_backward(grad, w)
         return val
 
     @staticmethod
     def backward(ctx, ct):
-        (grad,) = ctx.saved_tensors
-        return ct * grad, None, None, None, None
+        grad, w = ctx.saved_tensors
+        return ct * grad, None, ct * w if ctx.needs_input_grad[2] else None, None, None
 
 
 def nlml_fast(kern: Kernel, params, x, y, config: Config = DEFAULT) -> Tensor:
     """NLML whose derivative is the solve-free closed form
     (:func:`_nlml_vg_fast_one`) instead of autograd through the Cholesky:
-    the objective of the L-BFGS fit.  Without a gradient to track it is
-    the plain value (:func:`nlml`)."""
-    if not (torch.is_grad_enabled() and params.requires_grad):
+    the objective of the L-BFGS fit.  Its derivative in ``y`` is
+    ``K⁻¹y``.  Without a gradient to track it is the plain value
+    (:func:`nlml`)."""
+    if not (torch.is_grad_enabled() and (params.requires_grad or y.requires_grad)):
         return nlml(kern, params, x, y, config)
     if x.ndim == 3:
         return torch.stack([

@@ -1,8 +1,8 @@
 """Hyperparameter priors for MAP fits.
 
-Counterpart of the part of ``pygpr_tpu/models/priors.py`` that
-``fit_map`` needs: independent priors over the positive hyperparameters
-θ = [σ, ℓ…, σₙ] and their summed log density.  ``None`` entries are
+Counterpart of ``pygpr_tpu/models/priors.py`` without ``log_prior_u``:
+independent priors over the positive hyperparameters θ = [σ, ℓ…, σₙ]
+and their summed log density.  ``None`` entries are
 improper flat, so a prior can target one hyperparameter.
 """
 
@@ -65,6 +65,22 @@ class HalfNormal(Prior):
     def log_prob(self, theta):
         z = theta / self.scale
         return -0.5 * z * z + 0.5 * math.log(2.0 / math.pi) - math.log(self.scale)
+
+
+class Uniform(Prior):
+    """``θ ~ U(lo, hi)``: a hard box, −∞ outside it.  For a
+    gradient-based MAP prefer the smooth families (the box's gradient is
+    zero inside and undefined at the walls)."""
+
+    def __init__(self, lo: float, hi: float):
+        if not (0 <= lo < hi):
+            raise ValueError("need 0 <= lo < hi")
+        self.lo = float(lo)
+        self.hi = float(hi)
+
+    def log_prob(self, theta):
+        inside = (theta >= self.lo) & (theta <= self.hi)
+        return torch.where(inside, torch.full_like(theta, -math.log(self.hi - self.lo)), -math.inf)
 
 
 def log_prior(priors: Sequence[Optional[Prior]], theta: Tensor) -> Tensor:

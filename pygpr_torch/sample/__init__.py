@@ -6,5 +6,6 @@ from pygpr_torch.sample.designs import (
     Uniform,
     assign_clusters,
     cluster_samples,
+    euclidean_dist,
     sample_gp,
 )

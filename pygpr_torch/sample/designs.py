@@ -19,6 +19,7 @@ partition bit-identically.
     shards; a short cluster is topped up with its nearest remaining
     points so every shard has the same size.
   * :func:`sample_gp` — a GP prior draw ``f = L·𝒩(0, I) (+ mean)``.
+  * :func:`euclidean_dist` — the reference's squared-distance matrix.
 
 Randomness: where the JAX package takes a key, these take ``key``: None
 (the design's own seed), an int or a sequence of ints, or a
@@ -36,7 +37,7 @@ import torch
 
 from pygpr_torch.config import DEFAULT, Config, as_tensor
 from pygpr_torch.ops import linalg
-from pygpr_torch.ops.kernels import Kernel, kernel_matrix
+from pygpr_torch.ops.kernels import Kernel, kernel_matrix, sq_distance
 
 Key = Union[None, int, Sequence[int], np.random.Generator]
 
@@ -49,6 +50,17 @@ def _sq_dist(x: np.ndarray, y: np.ndarray) -> np.ndarray:
         diff = x[:, None, t] - y[None, :, t]
         d2 += diff * diff
     return d2
+
+
+def euclidean_dist(x, y):
+    """Squared-distance matrix ``[n, m]`` between the rows of ``x [n, d]``
+    and ``y [m, d]`` (the reference's ``euclidean_dist``, which returns the
+    *squared* distance), by the matmul trick of ``ops.kernels.sq_distance``.
+    A tensor where either input is one (on its device), else NumPy."""
+    dev = next((a.device for a in (x, y) if isinstance(a, torch.Tensor)), None)
+    xt = torch.as_tensor(x, device=dev)
+    d = sq_distance(torch.as_tensor(y, dtype=xt.dtype, device=xt.device), xt)
+    return d if dev is not None else d.numpy()
 
 
 def _hard_core_accept(cand: np.ndarray, min_dist: float, tol: float) -> np.ndarray:

@@ -216,6 +216,28 @@ def test_main_path_launches_both_kernels_and_matches_f64(dev):
     assert torch.linalg.norm(g.double() - g64) <= 1e-2 * torch.linalg.norm(g64)
 
 
+
+@pytest.mark.parametrize("family", ["matern52", "fixed_noise"])
+def test_kernel_family_nlml_launches_k2_and_matches_f64(family, dev):
+    """The fast NLML of Sum(Matern(2.5), WhiteNoise) and of
+    FixedNoise(Matern(2.5)) (the variance 0.01 known per point) in f32 on
+    the card against f64, within chip_smoke.py's kernel_families limits,
+    with K2 launched and K1 not (only the canonical RBF + noise takes K1)."""
+    n = 1024
+    x, y, _ = _data(n)
+    if family == "matern52":
+        kern, p = gp.Sum((gp.Matern(2.5), gp.WhiteNoise())), np.r_[np.ones(4), 0.1].astype(np.float32)
+    else:
+        x = gp.with_noise(x, 0.01)
+        kern, p = gp.FixedNoise(gp.Matern(2.5)), np.ones(4, np.float32)
+    counters = (gram.rbf_noise_gram_cuda, chol_inverse.cholesky_inverse_cuda)
+    before = [c.launches for c in counters]
+    v, g = gp.nlml_value_and_grad(kern, *(torch.tensor(a, device=dev) for a in (p, x, y)))
+    assert counters[0].launches == before[0] and counters[1].launches > before[1]
+    v64, g64 = gp.nlml_value_and_grad(kern, *(torch.tensor(a, device=dev, dtype=torch.float64) for a in (p, x, y)))
+    assert abs(v.item() - v64.item()) <= 1e-4 * abs(v64.item())
+    assert torch.linalg.norm(g.double() - g64) <= 1e-2 * torch.linalg.norm(g64)
+
 #: shapes whose plan on an H100 (132 SMs) needs no split of the column sweep
 UNSPLIT = ((6000, 2, 280), (70000, 2, 5))
 
