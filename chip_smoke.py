@@ -22,8 +22,12 @@ kernel families (the fast NLML of 13 of them at n = 4096 against f64 on
 the card, three fitted and served, a linear prior mean, known noise and
 four coregionalized tasks) and the reference PyGPR's own API under
 ``pygpr_torch.compat``'s names (CG and Nelder-Mead over MLE, the quadratic
-solvers, the step size, the scikit-learn wrapper), and prints one JSON
-object per phase.  The last line is
+solvers, the step size, the scikit-learn wrapper), MCMC over the
+hyperparameters (BASELINE config 3: RWM, HMC and NUTS over 4 chains at
+n = 1024, each chain's gram by K1 and the chains' stack by K3), the
+non-Gaussian and variational models (ESS, LaplaceGP and EPGP fits, SVGP,
+random Fourier features and a deep GP on the SGPR bench's inputs), and
+prints one JSON object per phase.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
 exits non-zero without it.  Without a CUDA device it exits 1 at once.
 Imports nothing of JAX or of the JAX package.
@@ -273,7 +277,7 @@ def api_phases(h, n=4096, n_nm=1024):
     """The reference's own API and the kernel families, on the card.
 
     ``h`` carries main()'s helpers (dev, check, zero_counts, read_counts,
-    wrappers, to_dev, timed, warm).  Phases: ``kernel_families`` (the fast
+    wrappers, to_dev, timed, warm, device_ms).  Phases: ``kernel_families`` (the fast
     NLML of each family at n: value and gradient against f64 on the card,
     ms per evaluation, K1 and K2 launches, and each gram adjoint against
     autograd in f64 at 1024 points with a coincident pair),
@@ -500,6 +504,353 @@ def api_phases(h, n=4096, n_nm=1024):
     torch.cuda.empty_cache()
 
 
+def unit(h, fn, reps=5):
+    """One unit of work on the card: the median host-clock ms of ``reps``
+    calls of ``fn``, the device ms of one more by group of kernels
+    (``main``'s ``device_ms``), and the idle share 1 − device/wall."""
+    secs, _ = h.warm(fn, reps)
+    parts = h.device_ms(fn)
+    return {"wall_ms": 1e3 * secs, "device_ms": parts, "idle_share": 1.0 - parts["all"] / (1e3 * secs)}
+
+
+#: the MCMC phase's problem (BASELINE config 3; the JAX package's test,
+#: tests/test_sample.py): y = sin(2x) + 0.1ε, x ~ U(0, 3) in 1-D, at the
+#: largest n where the JAX package's chains reach its Pallas Cholesky
+MCMC_N, MCMC_CHAINS = 1024, 4
+#: HMC's and NUTS's iterations (warmup, samples): cut from the JAX defaults
+#: (300 + 500 and 500 + 500) for the script's time limit
+HMC_ITERS, NUTS_ITERS = (200, 200), (200, 200)
+#: the noise parameter's posterior mean: the JAX test's bracket around 0.1
+NOISE_BRACKET = (0.05, 0.25)
+#: why RWM's split R-hat is printed and not held (HMC's and NUTS's are).
+#: RWM at its defaults does not reach R-hat < 1.3 on this problem in the
+#: reference either: in f64 the port reads 1.33 (σ), 1.29 (ℓ), 1.004
+#: (noise), and the JAX package's own f32 RWM on the CPU 2.24, 1.48, 1.006
+#: (`JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_mcmc.py rwm jax
+#: 32 0`): the σ-ℓ ridge is far wider than the step the acceptance target
+#: sets.  On an NVIDIA H100 80GB HBM3 (700 W) one chain of four also drifted
+#: to θ ≈ (9.35, 0.43, 0.017), noise R-hat 12.4: there the f32 gram fails
+#: the ladder's rungs up to a jitter of 1e-2, the true noise variance, so
+#: the f32 log posterior reads 844–852, as high as at the mode (836–856),
+#: where f64 reads −1.1e4 to −2.2e4, in the JAX package's f32 path as in
+#: the port's (`... tests/test_torch_mcmc.py jax drift`, `torch drift`): a
+#: second mode of the f32 target with the ladder, which HMC's and NUTS's
+#: gradients do not reach (ROADMAP §C, C4)
+RHAT_NOTE = ("RWM's R-hat printed, not held: the JAX package's f32 RWM reads 2.24, 1.48, 1.006 on the CPU; "
+             "f32 targets with the ladder have a second mode at jitter 1e-2 (C4)")
+#: the chains' log posterior and its gradient, f32 against f64 on the card
+#: (relative, the largest over the 8 states of chain_states()): about 2x
+#: the card's reading, 1.40e-4 and 2.46e-2 (NVIDIA H100 80GB HBM3, 700 W,
+#: the same to the last digit in three runs).  Both are above the
+#: flagship's limits (1e-4, 1e-2): this 1-D gram of 1024 points with noise
+#: 0.01 is ill-conditioned for f32, and the JAX package's own XLA path on
+#: the CPU reads 1.27e-4 and 3.02e-2 at the same states
+#: (`JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_mcmc.py`)
+CHAIN_VALUE_GAP, CHAIN_GRAD_GAP = 3e-4, 5e-2
+#: why the gaps around RWM's drifted chain are printed and not held
+DRIFT_NOTE = ("printed, not held: where f32 needs a higher rung of the ladder than f64, the two factor "
+              "different matrices (ROADMAP C4)")
+
+
+def mcmc_problem(n=MCMC_N, seed=0):
+    """The MCMC phase's data (NumPy, f64): x ~ U(0, 3) ``[n, 1]``,
+    y = sin(2x) + 0.1ε."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 3, size=(n, 1))
+    return x, np.sin(2.0 * x[:, 0]) + 0.1 * rng.normal(size=n)
+
+
+def chain_states(seed=8, center=(1.8, 0.64, 0.102)):
+    """8 chain states ``u = log θ [8, 3]``, 0.1 apart in u around θ =
+    ``center``: by default the posterior mode that HMC and NUTS read on an
+    NVIDIA H100."""
+    import numpy as np
+
+    return np.log(center) + 0.1 * np.random.default_rng(seed).standard_normal((8, 3))
+
+
+def mcmc_phase(h):
+    """BASELINE config 3 on the card: RWM at its defaults, HMC and NUTS
+    (cut in iterations), 4 chains at n = 1024 in f32, each chain's gram by
+    K1 and the [4, 1024, 1024] stack by K3.  Checks: finite draws, the
+    noise posterior mean in the JAX test's bracket, RWM's acceptance, HMC's
+    and NUTS's split R-hat, the chains' log posterior and gradient against
+    f64, K1 and K3 launched.  Prints seconds, log-posterior evaluations a second
+    (one chain's gram and factorization each: K1's launches over the
+    seconds), acceptance, R-hat and effective samples a second of the
+    noise parameter."""
+    import numpy as np
+    import torch
+
+    import pygpr_torch as gp
+    from pygpr_torch.ops import linalg
+    from pygpr_torch.ops.kernels import train_gram
+    from pygpr_torch.sample import mcmc
+
+    check, dev, n, C = h.check, h.dev, MCMC_N, MCMC_CHAINS
+    xn, yn = mcmc_problem(n)
+    x, y = h.to_dev(xn, yn)
+    kern = gp.Sum((gp.RBF(), gp.WhiteNoise()))
+    runs = {
+        "rwm": lambda g: gp.sample_posterior(kern, x, y, g, n_chains=C),
+        "hmc": lambda g: gp.sample_posterior_hmc(kern, x, y, g, n_chains=C, n_leapfrog=8, n_warmup=HMC_ITERS[0],
+                                                 n_samples=HMC_ITERS[1]),
+        "nuts": lambda g: gp.sample_posterior_nuts(kern, x, y, g, n_chains=C, max_depth=6, n_warmup=NUTS_ITERS[0],
+                                                   n_samples=NUTS_ITERS[1]),
+    }
+    out = {"phase": "mcmc", "n": n, "chains": C, "kernel": "Sum(RBF, WhiteNoise)", "dtype": "float32",
+           "rhat_note": RHAT_NOTE,
+           "iters": {"rwm": [500, 1000], "hmc": list(HMC_ITERS), "nuts": list(NUTS_ITERS)},
+           "cut": "HMC and NUTS at 200 + 200 iterations (JAX defaults 300 + 500 and 500 + 500)"}
+    checks = []
+    for name, run in runs.items():
+        h.zero_counts()
+        res, secs = h.timed(lambda: run(torch.Generator(device=dev).manual_seed(0)))
+        c = h.read_counts()
+        stack = h.wrappers["k3"].shapes[(C, n)]
+        s = res.samples
+        mean, _ = mcmc.posterior_moments(s)
+        rhat = mcmc.split_rhat(s)
+        ess = mcmc.effective_sample_size(s)
+        noise = mean[-1].item()
+        out[name] = {"seconds": secs, "launches": c, "k3_on_stack": stack, "lp_evals_per_s": c["k1"] / secs,
+                     "k3_per_evaluation": c["k3"] / max(c["k1"] / C, 1), "accept": res.accept_rate.tolist(),
+                     "step_size": res.step_size.tolist(), "posterior_mean": mean.tolist(),
+                     "chain_noise_means": s[:, :, -1].mean(dim=1).tolist(), "split_rhat": rhat.tolist(),
+                     "ess": ess.tolist(), "ess_noise_per_s": float(ess[-1]) / secs}
+        checks += [
+            check("mcmc", f"{name}: non-finite draws", bool(torch.isfinite(s).all())),
+            check("mcmc", f"{name}: noise posterior mean {noise} outside {NOISE_BRACKET}",
+                  NOISE_BRACKET[0] < noise < NOISE_BRACKET[1]),
+            check("mcmc", f"{name}: K1 or K3 on the [{C}, {n}, {n}] stack not launched {c} {stack}",
+                  c["k1"] > 0 and stack > 0 and c["k3_batched"] > 0),
+        ]
+        if name == "rwm":
+            # the mean θ of the chain with the smallest noise (C4's drift)
+            drift = s[s[:, :, -1].mean(dim=1).argmin()].double().mean(dim=0).tolist()
+            acc = res.accept_rate
+            checks.append(check("mcmc", f"rwm: acceptance {acc.tolist()} outside (0.1, 0.7)",
+                                bool(((acc > 0.1) & (acc < 0.7)).all())))
+        else:
+            # the JAX test's split R-hat < 1.3; RWM's is printed (RHAT_NOTE)
+            checks.append(check("mcmc", f"{name}: split R-hat {rhat.tolist()} >= 1.3", bool((rhat < 1.3).all())))
+        if name == "nuts":
+            out[name].update(tree_depth=res.tree_depth.tolist(), divergence_rate=res.divergence_rate.tolist())
+        del res
+    # the log posterior and its gradient, f32 against f64 on the card: held
+    # at the 8 states of chain_states(), printed at 3 other draws of them
+    # (the gaps' spread) and around RWM's chain of smallest noise with each
+    # gram's jitter in f32 and f64 (DRIFT_NOTE)
+    x64, y64 = h.to_dev(xn, yn, dtype=torch.float64)
+    lp32, lp64 = mcmc.log_posterior_fn(kern, x, y), mcmc.log_posterior_fn(kern, x64, y64)
+
+    def gaps(states):
+        (u,), (u64,) = h.to_dev(states), h.to_dev(states, dtype=torch.float64)
+        v32, g32 = mcmc._value_and_grad(lp32, u)
+        v64, g64 = mcmc._value_and_grad(lp64, u64)
+        rel_v = ((v32.double() - v64).abs() / v64.abs()).max().item()
+        return rel_v, ((g32.double() - g64).norm(dim=-1) / g64.norm(dim=-1)).max().item()
+
+    def rungs(states):
+        return [linalg.safe_cholesky(torch.stack([train_gram(kern, p, xx) for p in torch.exp(uu)])).jitter.tolist()
+                for xx, (uu,) in ((x, h.to_dev(states)), (x64, h.to_dev(states, dtype=torch.float64)))]
+
+    rel_v, rel_g = gaps(chain_states())
+    checks += [check("mcmc", f"log posterior f32 vs f64 {rel_v} > {CHAIN_VALUE_GAP}", rel_v <= CHAIN_VALUE_GAP),
+               check("mcmc", f"gradient f32 vs f64 {rel_g} > {CHAIN_GRAD_GAP}", rel_g <= CHAIN_GRAD_GAP)]
+    near_drift = chain_states(center=drift)
+    jit32, jit64 = rungs(near_drift)
+    out.update(spread_vs_f64={seed: gaps(chain_states(seed)) for seed in (9, 10, 11)},
+               drift_vs_f64={"center": drift, "rel_value_grad": gaps(near_drift), "jitter_f32": jit32,
+                             "jitter_f64": jit64, "note": DRIFT_NOTE})
+    # one evaluation of the stack (RWM's unit) and its value and gradient
+    # (HMC's and NUTS's), at the first 4 states
+    (u,) = h.to_dev(chain_states())
+    out.update(states_vs_f64={"states": 8, "rel_value": rel_v, "rel_grad": rel_g}, ok=all(checks),
+               unit_value=unit(h, lambda: lp32(u[:C]).detach()),
+               unit_value_and_grad=unit(h, lambda: mcmc._value_and_grad(lp32, u[:C])))
+    emit(out)
+    torch.cuda.empty_cache()
+
+
+#: the non-Gaussian phase's fits: n and L-BFGS iterations of LaplaceGP and
+#: EPGP (cut from the JAX default of 100 iterations for the time limit)
+NG_N, NG_FIT_ITERS = 2048, 30
+#: ESS's n, SVGP's inducing points, RFF's features and the deep GP's
+#: inducing points per layer (on the SGPR bench's N = 98304 inputs)
+ESS_N, SVGP_M, RFF_FEATURES, DGP_M = 1024, 1024, 1024, 128
+#: held-out accuracy of the Laplace and EP classifiers (2048 queries), ESS's
+#: training accuracy, SVGP's held-out accuracy (8192 queries), set from the
+#: first readings on an NVIDIA H100 80GB HBM3 at 700 W (Laplace 0.946, EP
+#: 0.996, ESS 0.913, SVGP 0.973) a few points below them: the labels are balanced signs, so a fit that learned nothing
+#: reads about 0.5
+NG_ACCURACY, ESS_ACCURACY, SVGP_ACCURACY = 0.9, 0.85, 0.93
+#: RFF's and the deep GP's held-out RMSE against the noise-free target
+#: (amplitude about 1.5), about 3x and 1.7x their first readings (0.00296
+#: and 0.143, the deep GP's loss still falling after its 500 steps)
+RFF_RMSE, DGP_RMSE = 0.01, 0.25
+#: the Laplace and EP evidence in f32 against f64 on the card at the
+#: fitted parameters (relative): about 30x and 10x the first readings
+#: (1.56e-4, 5.37e-4), f32 round-off in the Cholesky of B through 20
+#: Newton steps or 30 EP sweeps
+NG_EVIDENCE_GAP = 5e-3
+#: SVGP's bound at its Gaussian optimum against SGPR's bound, f64 on the
+#: card: the JAX test's identity (tests/test_svgp.py, rtol 1e-5)
+SVGP_SGPR_RTOL = 1e-5
+
+
+def ng_data():
+    """The non-Gaussian phase's inputs (NumPy, f64) on [0, 4]², from one
+    seeded generator: ESS's ``[ESS_N, 2]``, the Laplace and EP fits'
+    ``[NG_N, 2]`` and their 2048 held-out queries."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    return rng.uniform(0, 4, (ESS_N, 2)), rng.uniform(0, 4, (NG_N, 2)), rng.uniform(0, 4, (2048, 2))
+
+
+def non_gaussian_phase(h):
+    """ESS, LaplaceGP, EPGP, SVGP, RFF and the deep GP on the card."""
+    import numpy as np
+    import torch
+
+    import pygpr_torch as gp
+    from pygpr_torch import bench
+    from pygpr_torch.models import ep, laplace, rff, sgpr, svgp
+
+    check, dev, to_dev = h.check, h.dev, h.to_dev
+    target = bench._large_n_target
+    out = {"phase": "non_gaussian"}
+    checks = []
+    x_ess, x_fit, x_query = ng_data()
+
+    def accuracy(p, labels):
+        return ((p > 0.5).float() == labels).float().mean().item()
+
+    # -- ESS: BernoulliLogit at n = 1024, K factored by K3 (once a rung) -----
+    lab = (target(x_ess) > 0).astype(np.float32)
+    x, y = to_dev(x_ess, lab)
+    h.zero_counts()
+    res, secs = h.timed(lambda: gp.sample_latent(gp.RBF(), torch.ones(3, device=dev), gp.BernoulliLogit(),
+                                                 torch.zeros(0, device=dev), x, y,
+                                                 torch.Generator(device=dev).manual_seed(0), n_samples=1000,
+                                                 n_warmup=300))
+    c = h.read_counts()
+    k3_ess = h.wrappers["k3"].shapes[(1, ESS_N)]
+    acc = accuracy(torch.sigmoid(res.samples).mean(0), y)
+    checks += [check("non_gaussian", "ess: non-finite draws", bool(torch.isfinite(res.samples).all())),
+               check("non_gaussian", f"ess: K3 not launched on [{ESS_N}, {ESS_N}] alone {c}",
+                     k3_ess > 0 and c["k3"] == k3_ess),
+               check("non_gaussian", f"ess: training accuracy {acc} <= {ESS_ACCURACY}", acc > ESS_ACCURACY)]
+    out["ess"] = {"n": ESS_N, "iters": [300, 1000], "seconds": secs, "transitions_per_s": 1300 / secs,
+                  "train_accuracy": acc, "launches": c, "k3_rungs": k3_ess}
+
+    # -- Laplace (logit) and EP (probit) fits at n = 2048, d = 2 -------------
+    xn, xq = x_fit, x_query
+    lab, lab_q = (target(xn) > 0).astype(np.float32), (target(xq) > 0).astype(np.float32)
+    for name, cls, lik, mod, evidence in (("laplace", gp.LaplaceGP, gp.BernoulliLogit(), laplace, laplace.nlml),
+                                          ("ep", gp.EPGP, gp.BernoulliProbit(), ep, ep.nlml)):
+        model = cls(xn.astype(np.float32), lab, gp.RBF(), lik, device=dev)
+        with torch.no_grad():
+            v0 = evidence(gp.RBF(), model.params, lik, model.lik_params, model.x, model.y).item()
+        h.zero_counts()
+        fit, secs = h.timed(lambda: model.train(max_iter=NG_FIT_ITERS))
+        c = h.read_counts()
+        p, _ = model.predict(xq.astype(np.float32))
+        acc = accuracy(p, torch.as_tensor(lab_q, device=dev))
+        x64, y64 = to_dev(xn, lab, dtype=torch.float64)
+        with torch.no_grad():
+            v64 = evidence(gp.RBF(), fit.params.double(), lik, fit.lik_params.double(), x64, y64).item()
+        v1 = fit.nlml.item()
+        gap = abs(v1 - v64) / abs(v64)
+
+        def evidence_vg():
+            p = model.params.detach().clone().requires_grad_(True)
+            return torch.autograd.grad(evidence(gp.RBF(), p, lik, model.lik_params, model.x, model.y), p)
+
+        vg = unit(h, evidence_vg, reps=3)
+        checks += [check("non_gaussian", f"{name}: evidence did not fall {v0} -> {v1}", v1 < v0),
+                   check("non_gaussian", f"{name}: held-out accuracy {acc} <= {NG_ACCURACY}", acc > NG_ACCURACY),
+                   check("non_gaussian", f"{name}: f32 evidence vs f64 {gap} > {NG_EVIDENCE_GAP}",
+                         gap <= NG_EVIDENCE_GAP)]
+        out[name] = {"n": NG_N, "max_iter": NG_FIT_ITERS, "seconds": secs, "nlml_start": v0, "nlml_end": v1,
+                     "nlml_f64": v64, "rel_gap_f64": gap, "params": fit.params.tolist(),
+                     "converged": bool(fit.converged), "heldout_accuracy": acc, "launches": c,
+                     "unit_value_and_grad": vg, "evaluations_about": 1e3 * secs / vg["wall_ms"]}
+        del model, fit
+    torch.cuda.empty_cache()
+
+    # -- SVGP (logit), RFF and the deep GP on the SGPR bench's inputs ---------
+    xb, yb, xs, ys_true, _ = bench.sgpr_large_n_data()
+    x, y, xs_d = to_dev(xb, yb, xs)
+    truth = torch.as_tensor(ys_true, device=dev)
+    lab = (y > 0).float()
+    model = gp.SVGP(x, lab, gp.RBF(), gp.BernoulliLogit(), m=SVGP_M)
+    h.zero_counts()
+    fit, secs = h.timed(lambda: model.train(n_steps=500))
+    c = h.read_counts()
+    k3_m = h.wrappers["k3"].shapes[(1, SVGP_M)]
+    with torch.no_grad():
+        p, _ = model.predict(xs_d)
+    acc = accuracy(p, (truth > 0).float())
+    checks += [check("non_gaussian", f"svgp: loss did not fall {fit.losses[0].item()} -> {fit.losses[-1].item()}",
+                     fit.losses[-50:].mean().item() < fit.losses[:50].mean().item()),
+               check("non_gaussian", f"svgp: held-out accuracy {acc} <= {SVGP_ACCURACY}", acc > SVGP_ACCURACY),
+               check("non_gaussian", f"svgp: K3 on [{SVGP_M}, {SVGP_M}] not launched {c}", k3_m > 0)]
+    out["svgp"] = {"n": len(xb), "m": SVGP_M, "steps": 500, "batch": 512, "seconds": secs,
+                   "loss_first": fit.losses[0].item(), "loss_last": fit.losses[-1].item(), "heldout_accuracy": acc,
+                   "launches": c}
+    del model, fit
+    # the Gaussian optimum's bound is SGPR's, f64 on the card (4096 points,
+    # 256 inducing)
+    x64, y64 = to_dev(xb[:4096], yb[:4096], dtype=torch.float64)
+    z64 = x64[:256]
+    vp = svgp.init_variational(gp.RBF(), gp.GaussianLik(), x64, z64)
+    vp = vp._replace(log_theta=torch.log(torch.tensor([1.0, 2.0, 2.0], dtype=torch.float64, device=dev)),
+                     lik=torch.tensor([np.log(0.1)], dtype=torch.float64, device=dev))
+    with torch.no_grad():
+        q = svgp.optimal_q_gaussian(gp.RBF(), vp, x64, y64)
+        b_svgp = svgp.neg_elbo(gp.RBF(), gp.GaussianLik(), q, x64, y64).item()
+        b_sgpr = sgpr.neg_elbo(gp.RBF(), torch.tensor([1.0, 2.0, 2.0, 0.1], dtype=torch.float64, device=dev), x64,
+                               y64, z64).item()
+    rel = abs(b_svgp - b_sgpr) / abs(b_sgpr)
+    checks.append(check("non_gaussian", f"svgp: Gaussian optimum {b_svgp} vs SGPR {b_sgpr}", rel <= SVGP_SGPR_RTOL))
+    out["svgp_gaussian_optimum"] = {"n": 4096, "m": 256, "svgp": b_svgp, "sgpr": b_sgpr, "rel": rel}
+
+    basis = rff.make_basis(RFF_FEATURES, 2, seed=0, device=dev)
+    h.zero_counts()
+    (st, p_rff, v), secs = h.timed(lambda: gp.fit_rff(basis, x, y))
+    c = h.read_counts()
+    k3_m = h.wrappers["k3"].shapes[(1, RFF_FEATURES)]
+    with torch.no_grad():
+        mean, _ = rff.predict_rff(basis, st, xs_d, "none")
+    r = torch.sqrt(torch.mean((mean.double() - truth) ** 2)).item()
+    checks += [check("non_gaussian", f"rff: rmse {r} >= {RFF_RMSE}", r < RFF_RMSE),
+               check("non_gaussian", f"rff: K3 on [{RFF_FEATURES}, {RFF_FEATURES}] not launched {c}", k3_m > 0)]
+    out["rff"] = {"n": len(xb), "features": RFF_FEATURES, "seconds": secs, "nlml": v.item(), "params": p_rff.tolist(),
+                  "rmse": r, "launches": c}
+    del st
+
+    model = gp.DeepGP(x, y, widths=(1,), m=DGP_M)
+    h.zero_counts()
+    _, secs = h.timed(lambda: model.train(n_steps=500))
+    c = h.read_counts()
+    k3_m = h.wrappers["k3"].shapes[(1, DGP_M)]
+    mean, _ = model.predict(xs_d)
+    r = torch.sqrt(torch.mean((mean.double() - truth) ** 2)).item()
+    checks += [check("non_gaussian", f"deepgp: rmse {r} >= {DGP_RMSE}", r < DGP_RMSE),
+               check("non_gaussian", f"deepgp: K3 on [{DGP_M}, {DGP_M}] not launched {c}", k3_m > 0)]
+    out["deepgp"] = {"n": len(xb), "widths": [1], "m": DGP_M, "steps": 500, "seconds": secs,
+                     "loss_first": model.losses[0].item(), "loss_last": model.losses[-1].item(), "rmse": r,
+                     "launches": c}
+    out["ok"] = all(checks)
+    emit(out)
+    del model, x, y
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -639,17 +990,18 @@ def main() -> int:
 
     # -- 2. K1: fused RBF+noise gram against its plain version --------------
     # tolerance 1e-5 absolute: same formula and summation order, so only
-    # expf against torch.exp and fma contraction differ (K ≤ σ² + σₙ² ≈ 1)
-    for n in (1000, 2048, 8192):
-        xn, _, pn = make_data(n)
+    # expf against torch.exp and fma contraction differ (K ≤ σ² + σₙ² ≈ 1).
+    # Shapes: (1024, d = 1) each MCMC chain's gram, and the flagship's at d = 3
+    for n, d in ((1024, 1), (1000, 3), (2048, 3), (8192, 3)):
+        xn, _, pn = make_data(n, dim=d)
         x, p = to_dev(xn, pn)
         K = gram.rbf_noise_gram_cuda(p, x)
         err = (K - gram.rbf_noise_gram_plain(p, x)).abs().max().item()
         ms = cuda_ms(lambda: gram.rbf_noise_gram_cuda(p, x), 20)
         plain_ms = cuda_ms(lambda: gram.rbf_noise_gram_plain(p, x), 5)
-        b_ms, b_by = bound_ms(4.0 * (n * n + n * 3 + 5), n * n * (3.0 * 3 + 3))
-        ok = check("k1", f"n={n} max_abs_err {err} > 1e-5", err <= 1e-5)
-        emit({"phase": "k1_rbf_noise_gram", "n": n, "d": 3, "max_abs_err": err, "ok": ok,
+        b_ms, b_by = bound_ms(4.0 * (n * n + n * d + d + 2), n * n * (3.0 * d + 3))
+        ok = check("k1", f"n={n} d={d} max_abs_err {err} > 1e-5", err <= 1e-5)
+        emit({"phase": "k1_rbf_noise_gram", "n": n, "d": d, "max_abs_err": err, "ok": ok,
               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
         record["k1"] = dict(n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
@@ -724,7 +1076,8 @@ def main() -> int:
     # round-off times cond(K)); against the plain version, max-abs
     # difference ≤ 1e-3 of max|L| (the same right-looking algorithm, with
     # cuBLAS's summation order in the plain version's products).  Shapes:
-    # the main path's, [1024, 1024] the SGPR bench's Kuu, [100, 628, 628]
+    # the main path's, [1024, 1024] the SGPR bench's Kuu, [128, 128] the
+    # deep GP's, [4, 1024, 1024] the MCMC chains' stack, [100, 628, 628]
     # a chunk of the 10⁶-point serving bench, and [4, 1536, 1536] a small
     # stack in B5's domain (K3's 64-wide sweep, as at [16, 768, 768]; the
     # outer panels of 128 take [16, 6400, 6400])
@@ -736,7 +1089,7 @@ def main() -> int:
         return torch.stack([gram.rbf_noise_gram_plain(p, xi) for xi in to_dev(*x)])
 
     record["k3"] = {}
-    for nb, n in ((1, 256), (1, 1000), (1, 1024), (16, 768), (100, 628), (4, 1536), (16, 6400)):
+    for nb, n in ((1, 128), (1, 256), (1, 1000), (1, 1024), (4, 1024), (16, 768), (100, 628), (4, 1536), (16, 6400)):
         K = committee_grams(nb, n)
         K = K[0] if nb == 1 else K  # [n, n] as cholesky_pallas takes it
         L = chol_batched.cholesky_batched_cuda(K)
@@ -1546,9 +1899,17 @@ def main() -> int:
 
     # -- 10b. the reference's own API and the kernel families -----------------
     t0 = time.perf_counter()
-    api_phases(types.SimpleNamespace(dev=dev, check=check, zero_counts=zero_counts, read_counts=read_counts,
-                                     wrappers=wrappers, to_dev=to_dev, timed=timed, warm=warm))
+    helpers = types.SimpleNamespace(dev=dev, check=check, zero_counts=zero_counts, read_counts=read_counts,
+                                    wrappers=wrappers, to_dev=to_dev, timed=timed, warm=warm, device_ms=device_ms)
+    api_phases(helpers)
     emit({"phase": "api_phases", "seconds": time.perf_counter() - t0})
+
+    # -- 10c. MCMC over the hyperparameters, and the non-Gaussian and
+    # variational models ----------------------------------------------------
+    for phase in (mcmc_phase, non_gaussian_phase):
+        t0 = time.perf_counter()
+        phase(helpers)
+        emit({"phase": phase.__name__, "seconds": time.perf_counter() - t0})
 
     # -- 11. the main path's kernel time by shape -----------------------------
     # every shape each kernel was launched at on the main path, timed on

@@ -15,7 +15,10 @@ step size, ``OptTrace``, the scikit-learn wrapper ``SKWrap``, and
 (fit, factorize, aggregate, serve) with the PoE family, plus the designs
 that partition a committee, the matrix-free iterative GP (Krylov NLML,
 Adam fit, CG predict) and sparse SGPR (collapsed ELBO, L-BFGS fit,
-predict) on the bare ``RBF()``, and the benchmark entry points
+predict) on the bare ``RBF()``; MCMC over the hyperparameters (RWM, HMC,
+NUTS) and elliptical slice sampling of latents; the non-Gaussian and
+variational models (observation likelihoods, ``LaplaceGP``, ``EPGP``,
+``SVGP``, random Fourier features, ``DeepGP``); and the benchmark entry points
 (``pygpr_torch.bench``, with its stage probe
 ``pygpr_torch.bench.mfu_probe``).  On an NVIDIA H100 the train gram of
 ``Sum((RBF(), WhiteNoise()))``, the fused Cholesky plus triangular
@@ -79,7 +82,21 @@ from pygpr_torch.models.likelihood import (
     nlml_fast,
     nlml_value_and_grad,
 )
-from pygpr_torch.models import committee, grbcm, iterative, means, metrics, priors, sgpr
+from pygpr_torch.models import (
+    committee,
+    deepgp,
+    ep,
+    grbcm,
+    iterative,
+    laplace,
+    means,
+    metrics,
+    obs,
+    priors,
+    rff,
+    sgpr,
+    svgp,
+)
 from pygpr_torch.ops.coregion import ICM, TaskNoise, stack_outputs, with_task
 from pygpr_torch.ops.fixed_noise import FixedNoise, with_noise
 from pygpr_torch.models.means import ConstantMean, LinearMean, Mean, ZeroMean, fit_gp_mean
@@ -87,6 +104,12 @@ from pygpr_torch.models.priors import Gamma, HalfNormal, LogNormal
 from pygpr_torch.models.grbcm import GRBCM
 from pygpr_torch.models.iterative import IterativeGP
 from pygpr_torch.models.sgpr import SGPR
+from pygpr_torch.models.svgp import SVGP
+from pygpr_torch.models.obs import BernoulliLogit, BernoulliProbit, GaussianLik, PoissonLik, StudentTLik
+from pygpr_torch.models.laplace import LaplaceGP
+from pygpr_torch.models.ep import EPGP
+from pygpr_torch.models.deepgp import DeepGP
+from pygpr_torch.models.rff import fit_rff
 from pygpr_torch.models.metrics import loo_cv, loo_nlpd
 from pygpr_torch.models.committee import aggregate_committee, fit_committee, predict_committee
 from pygpr_torch.optimize import (
@@ -104,6 +127,17 @@ from pygpr_torch.optimize import (
     minimize_lbfgs,
 )
 from pygpr_torch import convert, interop, optimize, sample, utils
-from pygpr_torch.sample import Matern1, Sobol, Uniform, cluster_samples, euclidean_dist, sample_gp
+from pygpr_torch.sample import (
+    Matern1,
+    Sobol,
+    Uniform,
+    cluster_samples,
+    euclidean_dist,
+    sample_gp,
+    sample_latent,
+    sample_posterior,
+    sample_posterior_hmc,
+    sample_posterior_nuts,
+)
 from pygpr_torch.interop import SK_WRAP, SKWrap
 from pygpr_torch.utils import OptTrace

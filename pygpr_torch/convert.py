@@ -1,7 +1,9 @@
 """Carry state across from the JAX package as NumPy arrays.
 
 A posterior state (one GP or a committee's batched state), a grBCM
-``FitInfo``, an ``IterativeGP``, an ``SGPRState`` or a parameter vector
+``FitInfo``, an ``IterativeGP``, an ``SGPRState``, an observation
+likelihood, SVGP's ``SVGPParams``, the deep GP's ``DGPParams``, an
+``RFFBasis``, a ``LaplaceState``, an ``EPState`` or a parameter vector
 of ``pygpr_tpu``
 becomes the port's own through ``np.asarray`` of each field; nothing here
 imports the JAX package.  The packed parameter order is the same in both, e.g.
@@ -22,7 +24,12 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from pygpr_torch.models import means
+from pygpr_torch.models import means, obs
+from pygpr_torch.models.deepgp import DGPParams, LayerParams
+from pygpr_torch.models.ep import EPState
+from pygpr_torch.models.laplace import LaplaceState
+from pygpr_torch.models.rff import RFFBasis
+from pygpr_torch.models.svgp import SVGPParams
 from pygpr_torch.models.exact_gp import GPState
 from pygpr_torch.config import DEFAULT, Config
 from pygpr_torch.models.grbcm import FitInfo
@@ -153,3 +160,49 @@ def sgpr_state_from_numpy(arrays: Mapping[str, np.ndarray], device) -> SGPRState
     if missing:
         raise ValueError(f"sgpr_state_from_numpy: missing fields {missing}")
     return SGPRState(**{f: torch.tensor(np.asarray(arrays[f]), device=device) for f in SGPRState._fields})
+
+
+def _fields_from_numpy(cls, arrays: Mapping[str, np.ndarray], device, what: str):
+    missing = [f for f in cls._fields if f not in arrays]
+    if missing:
+        raise ValueError(f"{what}: missing fields {missing}")
+    return cls(**{f: torch.tensor(np.asarray(arrays[f]), device=device) for f in cls._fields})
+
+
+def likelihood_from_name(name: str, **args):
+    """The port's observation likelihood for the JAX class's name, with
+    its constructor's arguments (``nu`` of ``StudentTLik``), e.g.
+    ``likelihood_from_name(type(lik).__name__, **vars(lik))``.  Its
+    trainable parameters are a plain vector, carried by
+    :func:`params_from_numpy`."""
+    if name not in obs.LIKELIHOODS:
+        raise ValueError(f"no port of likelihood {name!r}; the port has {sorted(obs.LIKELIHOODS)}")
+    return obs.LIKELIHOODS[name](**args)
+
+
+def svgp_params_from_numpy(arrays: Mapping[str, np.ndarray], device) -> SVGPParams:
+    """SVGP's ``SVGPParams`` from NumPy copies of the JAX fields
+    (log_theta, lik, z, m_w, ls_raw)."""
+    return _fields_from_numpy(SVGPParams, arrays, device, "svgp_params_from_numpy")
+
+
+def dgp_params_from_numpy(layers, lik, device) -> DGPParams:
+    """The deep GP's ``DGPParams`` from one mapping of NumPy arrays per
+    layer (log_theta, z, m_w, ls_raw) and the likelihood's parameters."""
+    return DGPParams(layers=tuple(_fields_from_numpy(LayerParams, a, device, "dgp_params_from_numpy")
+                                  for a in layers), lik=torch.tensor(np.asarray(lik), device=device))
+
+
+def rff_basis_from_numpy(arrays: Mapping[str, np.ndarray], device) -> RFFBasis:
+    """An ``RFFBasis`` (freqs, phases) from NumPy copies of the JAX one."""
+    return _fields_from_numpy(RFFBasis, arrays, device, "rff_basis_from_numpy")
+
+
+def laplace_state_from_numpy(arrays: Mapping[str, np.ndarray], device) -> LaplaceState:
+    """A ``LaplaceState`` from NumPy copies of the JAX fields."""
+    return _fields_from_numpy(LaplaceState, arrays, device, "laplace_state_from_numpy")
+
+
+def ep_state_from_numpy(arrays: Mapping[str, np.ndarray], device) -> EPState:
+    """An ``EPState`` from NumPy copies of the JAX fields."""
+    return _fields_from_numpy(EPState, arrays, device, "ep_state_from_numpy")

@@ -43,6 +43,7 @@ from pygpr_torch.config import DEFAULT, Config, as_tensor
 from pygpr_torch.models.sgpr import _check_noise_free, init_params  # noqa: F401
 from pygpr_torch.ops import matvec as fused
 from pygpr_torch.ops.kernels import Kernel
+from pygpr_torch.optimize.adam import Adam
 
 Tensor = torch.Tensor
 
@@ -366,28 +367,21 @@ def fit(
 
     Fixed probes are common random numbers, so the trajectory is
     deterministic; Adam, not L-BFGS, since the gradient is a stochastic
-    estimate.  The update is optax's ``adam(learning_rate)`` written out
-    (b1 0.9, b2 0.999, eps 1e-8, eps_root 0), so the iterates are the JAX
+    estimate.  The update is optax's ``adam(learning_rate)``
+    (:class:`~pygpr_torch.optimize.adam.Adam`), so the iterates are the JAX
     package's.  Returns ``(params, nlml_trace [iters])``.
     """
     _check_noise_free(kern)
-    b1, b2, eps = 0.9, 0.999, 1e-8
     u = torch.log(torch.abs(params0.detach()))
-    mu = torch.zeros_like(u)
-    nu = torch.zeros_like(u)
+    opt = Adam([u], learning_rate)
     trace = []
-    for t in range(1, iters + 1):
+    for _ in range(iters):
         p = torch.exp(u)
         v, g = nlml_value_and_grad(
             kern, p, x, y, probes, rank=rank, num_lanczos=num_lanczos, cg_tol=cg_tol,
             max_cg=max_cg, block=block, config=config, matvec=matvec,
         )
-        gu = g * p  # d/d(log p)
-        mu = (1 - b1) * gu + b1 * mu
-        nu = (1 - b2) * gu**2 + b2 * nu
-        mu_hat = mu / (1 - b1**t)
-        nu_hat = nu / (1 - b2**t)
-        u = u + (mu_hat / (torch.sqrt(nu_hat) + eps)) * -learning_rate
+        (u,) = opt.step([u], [g * p])  # d/d(log p)
         trace.append(v)
     return torch.exp(u), torch.stack(trace)
 

@@ -13,7 +13,10 @@ Gradient strategies (``config.grad_mode``):
   * ``"ad"`` — autograd through the laddered Cholesky.
 
 A leading committee axis ``[nc, n, d]`` is a loop over experts (fast
-mode) or one batched factorization (value and ``"ad"`` mode).
+mode) or one batched factorization (value and ``"ad"`` mode).  A leading
+axis of the parameters alone, ``params [C, nhp]`` with one shared
+``x [n, d]`` (the chains of ``sample.mcmc``), is one batched
+factorization of the ``[C, n, n]`` stack of grams.
 """
 
 from __future__ import annotations
@@ -54,9 +57,13 @@ def _nlml_batched_vals(kern, params, x, y, config: Config) -> Tensor:
 
 
 def nlml(kern: Kernel, params, x, y, config: Config = DEFAULT) -> Tensor:
-    """NLML; ``[nc]`` over a leading committee axis of ``x``."""
+    """NLML; ``[nc]`` over a leading committee axis of ``x``, ``[C]`` over
+    a leading axis of ``params`` alone (one data set, C parameter vectors)."""
     if x.ndim == 3:
         return _nlml_batched_vals(kern, params, x, y, config)
+    if params.ndim == 2:
+        c = params.shape[0]
+        return _nlml_batched_vals(kern, params, x.expand(c, *x.shape), y.expand(c, -1), config)
     return _nlml_one(kern, params, x, y, config)
 
 

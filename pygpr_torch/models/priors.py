@@ -1,8 +1,9 @@
 """Hyperparameter priors for MAP fits.
 
-Counterpart of ``pygpr_tpu/models/priors.py`` without ``log_prior_u``:
-independent priors over the positive hyperparameters θ = [σ, ℓ…, σₙ]
-and their summed log density.  ``None`` entries are
+Counterpart of ``pygpr_tpu/models/priors.py``: independent priors over
+the positive hyperparameters θ = [σ, ℓ…, σₙ], their summed log density,
+and that density at u = log θ for a Markov chain over u
+(:func:`log_prior_u`).  ``None`` entries are
 improper flat, so a prior can target one hyperparameter.
 """
 
@@ -92,3 +93,15 @@ def log_prior(priors: Sequence[Optional[Prior]], theta: Tensor) -> Tensor:
         if p is not None:
             total = total + p.log_prob(theta[..., i])
     return total
+
+
+def log_prior_u(priors: Sequence[Optional[Prior]], u: Tensor) -> Tensor:
+    """θ-space prior at u = log θ with the change-of-variables Jacobian
+    ``Σ log|dθᵢ/duᵢ| = Σ uᵢ``, what a chain over u adds so that its draws
+    are samples of the θ-space posterior.  The Jacobian covers only the
+    coordinates that carry a prior (a flat-in-θ coordinate stays flat)."""
+    jac = torch.zeros(u.shape[:-1], dtype=u.dtype, device=u.device)
+    for i, p in enumerate(priors):
+        if p is not None:
+            jac = jac + u[..., i]
+    return log_prior(priors, torch.exp(u)) + jac

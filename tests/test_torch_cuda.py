@@ -386,3 +386,67 @@ def test_block_probe_wrappers_raise_on_what_the_kernels_do_not_take(dev):
             fn(torch.ones(256, 256, device=dev)[:, :128])
         with pytest.raises(ValueError):
             fn(torch.ones(192, 128, device=dev))
+
+
+def _chain_problem(n=1024, seed=0):
+    """The MCMC phase's problem (``chip_smoke.py``): y = sin(2x) + 0.1ε,
+    x ~ U(0, 3) in 1-D, and 4 chain states u = log θ near its posterior
+    mode (θ ≈ (1.8, 0.64, 0.102))."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 3.0, (n, 1))
+    y = np.sin(2.0 * x[:, 0]) + 0.1 * rng.normal(size=n)
+    u = np.log([1.8, 0.64, 0.102]) + 0.1 * np.random.default_rng(8).standard_normal((4, 3))
+    return x, y, u
+
+
+def test_chain_log_posterior_and_grad_f32_vs_f64(dev):
+    """The chains' log posterior and its autograd gradient at 4 chain
+    states ``[4, nhp]`` in f32 (K1 for each chain's gram, K3 on the
+    ``[4, 1024, 1024]`` stack) against f64 on the card, within
+    ``chip_smoke.py``'s limits: about 2× the card's reading at its 8 chain
+    states (1.40e-4 in value, 2.46e-2 in gradient, where the JAX package's
+    own f32 path on the CPU reads 1.27e-4 and 3.02e-2: this 1-D gram is
+    ill-conditioned for f32)."""
+    from pygpr_torch.sample import mcmc
+
+    n = 1024
+    x, y, u = _chain_problem(n)
+    kern = gp.Sum((gp.RBF(), gp.WhiteNoise()))
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        lp = mcmc.log_posterior_fn(kern, torch.tensor(x, dtype=dt, device=dev), torch.tensor(y, dtype=dt, device=dev))
+        k1, k3 = gram.rbf_noise_gram_cuda, chol_batched.cholesky_batched_cuda
+        before = (k1.launches, k3.launches, k3.shapes[(4, n)])
+        out[dt] = mcmc._value_and_grad(lp, torch.tensor(u, dtype=dt, device=dev))
+        torch.cuda.synchronize()
+        launched = (k1.launches - before[0], k3.launches - before[1], k3.shapes[(4, n)] - before[2])
+        if dt == torch.float32:
+            assert launched[0] == 4 and launched[1] >= 1 and launched[1] == launched[2]
+        else:
+            assert launched == (0, 0, 0)
+    (v32, g32), (v64, g64) = out[torch.float32], out[torch.float64]
+    assert torch.isfinite(v32).all() and torch.isfinite(g32).all()
+    assert ((v32.double() - v64).abs() / v64.abs()).max() <= 3e-4
+    assert ((g32.double() - g64).norm(dim=-1) / g64.norm(dim=-1)).max() <= 5e-2
+
+
+def test_latent_and_inducing_factorizations_launch_k3(dev):
+    """ESS's K, SVGP's K_uu and RFF's m×m system go through K3 in f32
+    (ESS's K once a rung of the jitter ladder)."""
+    from pygpr_torch.models import rff, svgp
+
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.uniform(0.0, 3.0, (512, 2)), dtype=torch.float32, device=dev)
+    y = (torch.sin(2.0 * x.sum(-1)) > 0).float()
+    k3 = chol_batched.cholesky_batched_cuda
+    before, before_512 = k3.launches, k3.shapes[(1, 512)]
+    res = gp.sample_latent(gp.RBF(), torch.ones(3, device=dev), gp.BernoulliLogit(), torch.zeros(0, device=dev), x,
+                           y, torch.Generator(device=dev).manual_seed(0), n_samples=5, n_warmup=5)
+    assert torch.isfinite(res.samples).all() and k3.launches > before
+    assert k3.shapes[(1, 512)] - before_512 == k3.launches - before
+    vp = svgp.init_variational(gp.RBF(), gp.BernoulliLogit(), x, x[:64])
+    v = svgp.neg_elbo(gp.RBF(), gp.BernoulliLogit(), vp, x, y)
+    assert torch.isfinite(v) and k3.shapes[(1, 64)] >= 1
+    basis = rff.make_basis(128, 2, seed=0, device=dev)
+    st = rff.factorize_rff(basis, torch.tensor([1.0, 1.0, 1.0, 0.3], device=dev), x, y)
+    assert bool(st.ok) and k3.shapes[(1, 128)] >= 1
