@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``pygpr_torch/csrc`` with nvcc
-(K1 gram, K2 fused Cholesky + inverse, K3 batched Cholesky, K4 fused
-gram-matvec, K5 and K6 the stage probe's per-block Cholesky and triangular
-inverse), holds each against its plain PyTorch version on the card (K2
+(K1 gram, one launch for a stack of grams, K2 fused Cholesky + inverse, K3
+batched Cholesky, K4 fused gram-matvec, K5 and K6 the stage probe's
+per-block Cholesky and triangular inverse), holds each against its plain PyTorch version on the card (K2
 also timed beside the library pair that gives the same L and L⁻¹),
 drives the port's exact-GP path (NLML value + fast gradient at
 n = 2048..16384, then an L-BFGS fit, factorize and predict at n = 4096),
@@ -24,7 +24,7 @@ four coregionalized tasks) and the reference PyGPR's own API under
 ``pygpr_torch.compat``'s names (CG and Nelder-Mead over MLE, the quadratic
 solvers, the step size, the scikit-learn wrapper), MCMC over the
 hyperparameters (BASELINE config 3: RWM, HMC and NUTS over 4 chains at
-n = 1024, each chain's gram by K1 and the chains' stack by K3), the
+n = 1024, the chains' grams by one K1 launch and their stack by K3), the
 non-Gaussian and variational models (ESS, LaplaceGP and EPGP fits, SVGP,
 random Fourier features and a deep GP on the SGPR bench's inputs), and
 prints one JSON object per phase.  The last line is
@@ -126,7 +126,7 @@ PROBE_LIBRARY_GRAD_GAP = 1e-2
 #: for each TPU kernel whose counterpart was redesigned for the H100, the
 #: numbered slice of the port that did it (ROADMAP.md, "Recent"); a
 #: redesigned kernel leaves the redesign order
-REDESIGNED_IN_SLICE = {"B4": 5, "B7": 5, "B2": 6, "B3": 6, "B6": 7, "B5": 8, "B8": 8}
+REDESIGNED_IN_SLICE = {"B4": 5, "B7": 5, "B2": 6, "B3": 6, "B6": 7, "B5": 8, "B8": 8, "B1": 11}
 
 
 def emit(obj) -> None:
@@ -573,12 +573,12 @@ def chain_states(seed=8, center=(1.8, 0.64, 0.102)):
 
 def mcmc_phase(h):
     """BASELINE config 3 on the card: RWM at its defaults, HMC and NUTS
-    (cut in iterations), 4 chains at n = 1024 in f32, each chain's gram by
-    K1 and the [4, 1024, 1024] stack by K3.  Checks: finite draws, the
-    noise posterior mean in the JAX test's bracket, RWM's acceptance, HMC's
-    and NUTS's split R-hat, the chains' log posterior and gradient against
-    f64, K1 and K3 launched.  Prints seconds, log-posterior evaluations a second
-    (one chain's gram and factorization each: K1's launches over the
+    (cut in iterations), 4 chains at n = 1024 in f32, the chains' grams by
+    one K1 launch (x shared) and the [4, 1024, 1024] stack by K3.  Checks:
+    finite draws, the noise posterior mean in the JAX test's bracket, RWM's
+    acceptance, HMC's and NUTS's split R-hat, the chains' log posterior and
+    gradient against f64, K1 and K3 launched.  Prints seconds, log-posterior evaluations a second
+    (one chain's gram and factorization each: the grams K1 wrote over the
     seconds), acceptance, R-hat and effective samples a second of the
     noise parameter."""
     import numpy as np
@@ -615,8 +615,9 @@ def mcmc_phase(h):
         rhat = mcmc.split_rhat(s)
         ess = mcmc.effective_sample_size(s)
         noise = mean[-1].item()
-        out[name] = {"seconds": secs, "launches": c, "k3_on_stack": stack, "lp_evals_per_s": c["k1"] / secs,
-                     "k3_per_evaluation": c["k3"] / max(c["k1"] / C, 1), "accept": res.accept_rate.tolist(),
+        out[name] = {"seconds": secs, "launches": c, "k3_on_stack": stack,
+                     "lp_evals_per_s": c["k1_matrices"] / secs,
+                     "k3_per_evaluation": c["k3"] / max(c["k1_matrices"] / C, 1), "accept": res.accept_rate.tolist(),
                      "step_size": res.step_size.tolist(), "posterior_mean": mean.tolist(),
                      "chain_noise_means": s[:, :, -1].mean(dim=1).tolist(), "split_rhat": rhat.tolist(),
                      "ess": ess.tolist(), "ess_noise_per_s": float(ess[-1]) / secs}
@@ -654,7 +655,7 @@ def mcmc_phase(h):
         return rel_v, ((g32.double() - g64).norm(dim=-1) / g64.norm(dim=-1)).max().item()
 
     def rungs(states):
-        return [linalg.safe_cholesky(torch.stack([train_gram(kern, p, xx) for p in torch.exp(uu)])).jitter.tolist()
+        return [linalg.safe_cholesky(train_gram(kern, torch.exp(uu), xx)).jitter.tolist()
                 for xx, (uu,) in ((x, h.to_dev(states)), (x64, h.to_dev(states, dtype=torch.float64)))]
 
     rel_v, rel_g = gaps(chain_states())
@@ -946,7 +947,7 @@ def main() -> int:
             us = getattr(e, "cuda_time_total", 0.0) if us is None else us
             if "rbf_gram_matvec_kernel" in e.key:
                 groups["k4"] += us
-            elif "rbf_noise_gram_kernel" in e.key:
+            elif "rbf_noise_gram_stack" in e.key:
                 groups["k1"] += us
             elif "chol_batched_panel" in e.key or "chol_batched_diag128" in e.key:
                 groups["k3_panel"] += us
@@ -988,22 +989,77 @@ def main() -> int:
     })
     record = {}
 
-    # -- 2. K1: fused RBF+noise gram against its plain version --------------
+    # -- 2. K1: fused RBF+noise grams against the plain version ------------
     # tolerance 1e-5 absolute: same formula and summation order, so only
     # expf against torch.exp and fma contraction differ (K ≤ σ² + σₙ² ≈ 1).
-    # Shapes: (1024, d = 1) each MCMC chain's gram, and the flagship's at d = 3
+    # One gram: (1024, d = 1) an MCMC chain's alone, and the flagship's at
+    # d = 3.  Stacks, one launch each, as the main path builds them: the 4
+    # chains' [4, 1024, 1024] (x shared, a θ a chain), the 16 × 512 + 256
+    # committee's [16, 768, 768] (x and θ an expert), the 16 × 6144 + 256
+    # fit's [16, 6400, 6400] and a 10⁶-point serving chunk's [100, 628, 628]
+    # (θ shared); each also bit-equal to launches on its matrices one by one,
+    # and bit-symmetric.  "ms" is device time queued behind a spin kernel,
+    # "back_to_back_ms" the events over calls issued back to back (at small
+    # n the host's dispatch), "host_ms" the host clock a call issued back to
+    # back; the bound counts the nb grams' store and flops, and reads each
+    # distinct x and θ once (nx and nparams: 1 when shared, else nb)
+    def k1_bound(nb, n, d, nx, nparams):
+        return bound_ms(gram.stack_bytes(nb, n, d, nx, nparams), nb * n * n * (3.0 * d + 3))
+
+    def host_ms(fn, reps=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out = 1e3 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+        return out
+
+    def k1_times(p, x, reps):
+        call = lambda: gram.rbf_noise_gram_cuda(p, x)
+        return dict(ms=shape_ms(call)[0], back_to_back_ms=cuda_ms(call, reps), host_ms=host_ms(call, 10 * reps),
+                    plain_ms=cuda_ms(lambda: gram.rbf_noise_gram_plain(p, x), 3))
+
+    record["k1_stacks"] = {}
+    k1_start = time.perf_counter()
     for n, d in ((1024, 1), (1000, 3), (2048, 3), (8192, 3)):
         xn, _, pn = make_data(n, dim=d)
         x, p = to_dev(xn, pn)
         K = gram.rbf_noise_gram_cuda(p, x)
         err = (K - gram.rbf_noise_gram_plain(p, x)).abs().max().item()
-        ms = cuda_ms(lambda: gram.rbf_noise_gram_cuda(p, x), 20)
-        plain_ms = cuda_ms(lambda: gram.rbf_noise_gram_plain(p, x), 5)
-        b_ms, b_by = bound_ms(4.0 * (n * n + n * d + d + 2), n * n * (3.0 * d + 3))
+        times = k1_times(p, x, 20)
+        b_ms, b_by = k1_bound(1, n, d, 1, 1)
         ok = check("k1", f"n={n} d={d} max_abs_err {err} > 1e-5", err <= 1e-5)
-        emit({"phase": "k1_rbf_noise_gram", "n": n, "d": d, "max_abs_err": err, "ok": ok,
-              "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
-        record["k1"] = dict(n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        emit({"phase": "k1_rbf_noise_gram", "n": n, "d": d, "max_abs_err": err, "ok": ok, **times,
+              "bound_ms": b_ms, "bound_by": b_by})
+        record["k1"] = dict(n=n, max_abs_err=err, ms=times["ms"], plain_ms=times["plain_ms"], bound_ms=b_ms,
+                            bound_by=b_by)
+    for nb, n, d, x_shared, p_shared in ((4, 1024, 1, True, False), (16, 768, 2, False, False),
+                                         (16, 6400, 2, False, True), (100, 628, 2, False, True)):
+        krng = np.random.default_rng(5)
+        xn = krng.uniform(0.0, 2.0, (1 if x_shared else nb, n, d)).astype(np.float32)
+        pn = (1.0 + 0.05 * krng.standard_normal((1 if p_shared else nb, d + 2))).astype(np.float32)
+        pn[:, -1] = 0.1
+        p, x = to_dev(pn, xn)
+        p, x = p.expand(nb, d + 2), x.expand(nb, n, d)
+        K = gram.rbf_noise_gram_cuda(p, x)
+        err = (K - gram.rbf_noise_gram_plain(p, x)).abs().max().item()
+        alone = all(torch.equal(K[i], gram.rbf_noise_gram_cuda(p[i], x[i])) for i in range(nb))
+        symmetric = bool(torch.equal(K, K.mT))
+        del K
+        times = k1_times(p, x, 5 if n > 4096 else 20)
+        b_ms, b_by = k1_bound(nb, n, d, 1 if x_shared else nb, 1 if p_shared else nb)
+        shape = [nb, n, d]
+        ok = all([check("k1", f"{shape} max_abs_err {err} > 1e-5", err <= 1e-5),
+                  check("k1", f"{shape} a matrix differs from its launch alone", alone),
+                  check("k1", f"{shape} a matrix not bit-symmetric", symmetric)])
+        emit({"phase": "k1_rbf_noise_gram_stack", "shape": shape, "x_shared": x_shared, "params_shared": p_shared,
+              "max_abs_err": err, "equal_to_launches_alone": alone, "bit_symmetric": symmetric, "ok": ok, **times,
+              "bound_ms": b_ms, "bound_by": b_by, "ms_over_bound": times["ms"] / b_ms})
+        record["k1_stacks"][tuple(shape)] = dict(max_abs_err=err, **times, bound_ms=b_ms)
+        torch.cuda.empty_cache()
+    emit({"phase": "k1_seconds", "seconds": time.perf_counter() - k1_start})
 
     # -- 3. K2: fused Cholesky + inverse against plain and f64 --------------
     # tolerances: against f64, ‖L−L64‖F/‖L64‖F ≤ 1e-3 and max|T·L−I| ≤ 1e-3
@@ -1085,8 +1141,7 @@ def main() -> int:
         """RBF + noise grams of the committee's inputs: d = 2 on [0, 4]²,
         σ = ℓ = 1, σₙ = 0.1."""
         x = np.random.default_rng(seed).uniform(0.0, 4.0, size=(nb, n, 2)).astype(np.float32)
-        (p,) = to_dev(np.array([1.0, 1.0, 1.0, 0.1], np.float32))
-        return torch.stack([gram.rbf_noise_gram_plain(p, xi) for xi in to_dev(*x)])
+        return gram.rbf_noise_gram_plain(*to_dev(np.array([1.0, 1.0, 1.0, 0.1], np.float32), x))
 
     record["k3"] = {}
     for nb, n in ((1, 128), (1, 256), (1, 1000), (1, 1024), (4, 1024), (16, 768), (100, 628), (4, 1536), (16, 6400)):
@@ -1318,13 +1373,14 @@ def main() -> int:
     # value 1e-4 and gradient 1e-2 relative, about 15x and 10x the
     # f32-vs-f64 gaps of the JAX package at n = 2048
     k1, k2, k3 = gram.rbf_noise_gram_cuda, chol_inverse.cholesky_inverse_cuda, chol_batched.cholesky_batched_cuda
-    totals = {"k1": 0, "k2": 0, "k2_rolled": 0, "k3": 0, "k3_batched": 0, "k4": 0, "k5": 0, "k6": 0}
+    totals = {"k1": 0, "k1_matrices": 0, "k2": 0, "k2_rolled": 0, "k3": 0, "k3_batched": 0, "k4": 0, "k5": 0, "k6": 0}
     wrappers = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k5": k5, "k6": k6}
     #: the main path's launches by kernel and shape (each wrapper's tally)
     shape_totals = {k: collections.Counter() for k in wrappers}
 
     def zero_counts():
-        k1.launches = k2.launches = k2.rolled_launches = k3.launches = k3.batched_launches = k4.launches = 0
+        k1.launches = k1.matrices = k2.launches = k2.rolled_launches = k3.launches = k3.batched_launches = 0
+        k4.launches = 0
         k5.launches = k6.launches = 0
         for w in wrappers.values():
             w.shapes.clear()
@@ -1333,8 +1389,9 @@ def main() -> int:
         """Launches since zero_counts, by kernel, added to the totals of the
         main path's runs; k2_rolled are K2's launches in
         cholesky_inverse_pallas_rolled's domain (n > 5632), k3_batched K3's
-        on a stack in cholesky_pallas_batched's domain."""
-        got = {"k1": k1.launches, "k2": k2.launches, "k2_rolled": k2.rolled_launches, "k3": k3.launches,
+        on a stack in cholesky_pallas_batched's domain, k1_matrices the grams
+        K1's launches wrote."""
+        got = {"k1": k1.launches, "k1_matrices": k1.matrices, "k2": k2.launches, "k2_rolled": k2.rolled_launches, "k3": k3.launches,
                "k3_batched": k3.batched_launches, "k4": k4.launches, "k5": k5.launches, "k6": k6.launches}
         for k, v in got.items():
             totals[k] += v
@@ -1925,9 +1982,13 @@ def main() -> int:
         None, for K2 the library pair (cholesky_ex + tri_inverse_doubling)
         or None) on fresh inputs of ``shape``."""
         if key == "k1":
-            n, d = shape
-            x, p = to_dev(srng.uniform(0.0, 2.0, (n, d)).astype(np.float32), np.r_[np.ones(d + 1), 0.1].astype(np.float32))
-            return (lambda: k1(p, x)), bound_ms(4.0 * (n * n + n * d + d + 2), n * n * (3.0 * d + 3)), None, None
+            # nx distinct x and nparams distinct θ, each shared one expanded
+            # along the stack, as the main path passed them
+            nb, n, d, nx, nparams = shape
+            pn = np.tile(np.r_[np.ones(d + 1), 0.1], (nparams, 1)) + 0.01 * np.arange(nparams)[:, None]
+            x, p = to_dev(srng.uniform(0.0, 2.0, (nx, n, d)).astype(np.float32), pn.astype(np.float32))
+            x, p = (x[0], p[0]) if nb == 1 else (x.expand(nb, n, d), p.expand(nb, d + 2))
+            return (lambda: k1(p, x)), k1_bound(nb, n, d, nx, nparams), None, None
         if key == "k2":
             (n,) = shape
             xn, _, pn = make_data(n)
@@ -2058,7 +2119,9 @@ def main() -> int:
          "replaces": "pygpr_tpu/ops/pallas_kernels.py:136",
          "launches": totals["k1"], "max_abs_err": r1["max_abs_err"], "ms": r1["ms"],
          "plain_ms": r1["plain_ms"], "bound_ms": r1["bound_ms"], "bound_by": r1["bound_by"],
-         "library_ms": None, "n": r1["n"], "ok": k1_ok},
+         "library_ms": None, "n": r1["n"], "chains_stack": [4, 1024, 1],
+         "chains_stack_ms": record["k1_stacks"][(4, 1024, 1)]["ms"],
+         "chains_stack_bound_ms": record["k1_stacks"][(4, 1024, 1)]["bound_ms"], "ok": k1_ok},
         k2_line("cholesky_inverse_pallas", "pygpr_tpu/ops/pallas_cholesky.py:1071",
                 totals["k2"] - totals["k2_rolled"], r2a),
         k2_line("cholesky_inverse_pallas_rolled", "pygpr_tpu/ops/pallas_cholesky.py:1023", totals["k2_rolled"], r2b),

@@ -221,11 +221,11 @@ def bench_grbcm_million_serving(nc: int = 2000, nls: int = 500, ng: int = 128, n
 
     The committee has ``nc`` augmented experts of ``n_aug = ng + nls``.
     Every expert's ``T = L⁻¹`` and ``w = K⁻¹y`` are computed once, in
-    chunks of ``chunk`` experts (K1 grams, the K3 Cholesky of the chunk's
-    stack, block-doubling inverses), into one resident ``[nc, n_aug,
-    n_aug]`` stack (3.2 GB at the defaults).  A query batch is then
-    products only: the global expert's predict, then per chunk of experts
-    one cross gram and one ``T·K*ᵀ`` product, with the β-precision
+    chunks of ``chunk`` experts (one K1 launch for a chunk's grams, the
+    K3 Cholesky of its stack, block-doubling inverses), into one resident
+    ``[nc, n_aug, n_aug]`` stack (3.2 GB at the defaults).  A query batch
+    is then products only: the global expert's predict, then per chunk of
+    experts one cross gram and one ``T·K*ᵀ`` product, with the β-precision
     aggregation (pinned communication expert β₁ = 1) summed chunk by chunk
     in ``[nq]`` accumulators.  The hyperparameters are fixed (θ = 1,
     σₙ = 0.3), not fitted, so ``rmse_vs_true`` is that of grBCM at those
@@ -256,7 +256,7 @@ def bench_grbcm_million_serving(nc: int = 2000, nls: int = 500, ng: int = 128, n
 
     # ---- one-time factorization sweep, chunked ----------------------------
     def factorize_chunk(xc, yc):
-        grams = torch.stack([train_gram(cov, p_j, xx) for xx in xc])
+        grams = train_gram(cov, p_j, xc)
         chol = linalg.safe_cholesky(grams).chol
         del grams
         return linalg.tri_inverse_doubling(chol), linalg.cholesky_solve(chol, yc)

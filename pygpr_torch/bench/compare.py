@@ -1,7 +1,7 @@
 """A kernel against an earlier version of its source, on one card in one
 process.
 
-    python -m pygpr_torch.bench.compare --kernel {k2,k3,k4,k6} --old DIR [n ...]
+    python -m pygpr_torch.bench.compare --kernel {k1,k2,k3,k4,k6} --old DIR [n ...]
 
 ``DIR`` holds the earlier source and the headers it includes, unpacked
 from git into a directory that ``.gitignore`` lists, for example::
@@ -15,6 +15,18 @@ one earlier C entry, named below, through ``ctypes``; a source that does
 not declare exactly that entry (``OLD_ENTRIES``) is refused before it is
 built.  Both kernels are timed in turns (old, new, new, old).  The card's
 name and power limit come first.
+
+``--kernel k1``: K1 (``csrc/rbf_noise_gram.cu``) against the one-matrix
+version with C entry ``rbf_noise_gram_f32(x, params, out, n, d, stream)``,
+which builds a stack in one launch a matrix (each into its slice of the
+output, so no copy is timed).  For each shape (default: every shape the
+main path of ``chip_smoke.py`` gives K1; given as groups of five ``nb n d
+nx nparams``, the numbers of distinct x and θ, 1 for one shared along the
+stack) one JSON line: both versions' device ms for the stack (queued
+behind a spin kernel) and host ms a stack back to back (CUDA events, no
+spin: what a caller that waits on nothing pays), the byte bound (a shared
+input read once), whether the two stacks are bit-equal and the new one
+bit-symmetric, on ``x ~ U(0, 2)``.  Exits 1 if a stack is not bit-equal.
 
 ``--kernel k2``: K2 (``csrc/chol_inverse.cu``, with ``block_inverse.cuh``
 and ``small_chol.cuh``) against a version with C entry
@@ -80,15 +92,27 @@ K2_MAIN_PATH_N = (256, 2048, 4096, 6400, 8192, 16384)
 #: tests' stacks on either side of the choice between K3's launch sequences
 K3_SHAPES = ((1, 256), (1, 1000), (1, 1024), (16, 768), (100, 628), (16, 6400), (4, 1536), (3, 2560), (16, 2048),
              (3, 4096))
+#: every (nb, n, d, distinct x, distinct θ) the main path of
+#: ``chip_smoke.py`` gives K1 (its ``main_path_by_shape`` line), and the
+#: one-matrix kernel's chain gram (1, 1024, 1): one grams of the committees' global and
+#: local experts, the fits and the flagship; the MCMC chains' stack (x
+#: shared); the 16 × 512 + 256 and 16 × 6144 + 256 committees under their
+#: shared θ (the fit) and with a θ row an expert (factorize); a 10⁶-point
+#: serving chunk (θ shared)
+K1_SHAPES = ((1, 128, 2, 1, 1), (1, 256, 2, 1, 1), (1, 1024, 1, 1, 1), (1, 1024, 3, 1, 1), (1, 2048, 3, 1, 1),
+             (1, 4096, 3, 1, 1), (1, 6400, 2, 1, 1), (1, 8192, 3, 1, 1), (1, 16384, 3, 1, 1), (4, 1024, 1, 1, 4),
+             (16, 768, 2, 16, 1), (16, 768, 2, 16, 16), (16, 6400, 2, 16, 1), (16, 6400, 2, 16, 16),
+             (100, 628, 2, 100, 1))
 #: the stage probe's strips, P blocks of 128 (n = 2048 and 8192)
 K6_PANELS = (16, 64)
 #: the widths the main path of ``chip_smoke.py`` launches K4 at, by n
 K4_MAIN_PATH = {32768: (1, 5, 8, 9, 40, 256), 131072: (1, 5, 8, 9, 40)}
 #: the C source each kernel is built from
-SOURCES = {"k2": "chol_inverse", "k3": "chol_batched", "k4": "rbf_gram_matvec", "k6": "block_probe"}
+SOURCES = {"k1": "rbf_noise_gram", "k2": "chol_inverse", "k3": "chol_batched", "k4": "rbf_gram_matvec", "k6": "block_probe"}
 #: the one earlier C entry each mode calls, by its parameters' types: an
 #: old source that does not declare exactly this entry is refused
 OLD_ENTRIES = {
+    "k1": ("rbf_noise_gram_f32", ("const void*", "const void*", "void*", "int", "int", "void*")),
     "k2": ("chol_inverse_f32", ("const void*", "void*", "void*", "void*", "int", "void*")),
     "k3": ("chol_batched_f32", ("const void*", "void*", "void*", "int", "int", "int", "void*")),
     "k4": ("rbf_gram_matvec_f32", ("const void*", "const void*", "const void*", "void*", "int", "int", "int", "void*")),
@@ -171,6 +195,61 @@ def queued_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def old_k1(lib: ctypes.CDLL):
+    """The earlier library's stack ``[nb, n, n]`` of CUDA f32 ``params [nb,
+    d + 2]`` and ``x [nb, n, d]`` (each matrix's row contiguous; a shared
+    input expanded): one launch a matrix."""
+    fn = lib.rbf_noise_gram_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+    def call(p, x):
+        nb, n, d = x.shape
+        out = torch.empty((nb, n, n), dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for i in range(nb):
+            err = fn(x[i].data_ptr(), p[i].data_ptr(), out[i].data_ptr(), n, d, stream)
+            if err != 0:
+                raise RuntimeError(f"old rbf_noise_gram launch failed: CUDA error {err}")
+        return out
+
+    return call
+
+
+def compare_k1(old, shapes, device="cuda") -> list:
+    """Both kernels in turns on each (nb, n, d, nx, nparams): nx distinct
+    x and nparams distinct θ, a shared one expanded along the stack (the
+    new kernel reads it at batch stride 0)."""
+    from pygpr_torch.ops import gram
+
+    new = gram.rbf_noise_gram_cuda
+    rows = []
+    for nb, n, d, nx, nparams in shapes:
+        rng = np.random.default_rng(0)
+        p = np.ones((nparams, d + 2), np.float32) + 0.01 * np.arange(nparams, dtype=np.float32)[:, None]
+        p[:, -1] = 0.1
+        x, p = (torch.tensor(a, dtype=torch.float32, device=device)
+                for a in (rng.uniform(0.0, 2.0, (nx, n, d)), p))
+        x, p = x.expand(nb, n, d), p.expand(nb, d + 2)
+        reps = 10 if nb * n * n > 10**8 else 50
+        turns = {"old": [], "new": []}
+        for who in ("old", "new", "new", "old"):
+            turns[who].append(queued_ms(lambda: (old if who == "old" else new)(p, x), reps))
+        Ko, Kn = old(p, x), new(p, x)
+        row = {"shape": [nb, n, d, nx, nparams], "old_ms": turns["old"], "new_ms": turns["new"],
+               "old_over_new": float(np.mean(turns["old"]) / np.mean(turns["new"])),
+               "old_host_ms": events_ms(lambda: old(p, x), 4 * reps),
+               "new_host_ms": events_ms(lambda: new(p, x), 4 * reps),
+               "bound_ms": 1e3 * gram.stack_bytes(nb, n, d, nx, nparams) / 3.35e12,
+               "bit_equal": bool(torch.equal(Kn, Ko)), "max_abs_gap": (Kn - Ko).abs().max().item(),
+               "new_symmetric": bool(torch.equal(Kn, Kn.mT))}
+        del Ko, Kn
+        torch.cuda.empty_cache()
+        print(json.dumps({"compare_k1": row}), flush=True)
+        rows.append(row)
+    return rows
 
 
 def compare_k2(old, ns, device="cuda") -> list:
@@ -315,7 +394,7 @@ def committee_grams(nb, n, device, seed=3):
 
     x = np.random.default_rng(seed).uniform(0.0, 4.0, size=(nb, n, 2)).astype(np.float32)
     p = torch.tensor([1.0, 1.0, 1.0, 0.1], device=device)
-    K = torch.stack([gram.rbf_noise_gram_plain(p, torch.tensor(xi, device=device)) for xi in x])
+    K = gram.rbf_noise_gram_plain(p, torch.tensor(x, device=device))
     return K[0] if nb == 1 else K
 
 
@@ -436,7 +515,12 @@ def main(argv=None) -> int:
               f"but ({', '.join(got) or 'none'})", file=sys.stderr)
         return 1
     lib = build_old(args.old.resolve(), SOURCES[args.kernel])
-    if args.kernel == "k2":
+    if args.kernel == "k1":
+        rows = compare_k1(old_k1(lib), list(zip(*(args.n[i::5] for i in range(5)))) if args.n else list(K1_SHAPES))
+        if not all(r["bit_equal"] for r in rows):
+            print("compare: K1's grams differ from the earlier version's", file=sys.stderr)
+            return 1
+    elif args.kernel == "k2":
         compare_k2(old_k2(lib), args.n or list(K2_MAIN_PATH_N))
     elif args.kernel == "k3":
         shapes = list(zip(args.n[::2], args.n[1::2])) if args.n else list(K3_SHAPES)

@@ -6,9 +6,10 @@ Counterpart of ``pygpr_tpu/models/exact_gp.py`` (the reference's
 K*·w and the diagonal variance or full covariance K** − K*K⁻¹K*ᵀ.
 
 A leading committee axis ``[nc, n, d]`` is batch-visible: the grams are
-stacked and one laddered Cholesky factors the ``[nc, n, n]`` stack, so
-f32 on the card goes through kernel K3 with every expert's pivot chain
-advancing together, and the solves and products are batched.  A stack
+built as one stack (``train_gram``: one K1 launch on the card) and one
+laddered Cholesky factors the ``[nc, n, n]`` stack, so f32 on the card
+goes through kernel K3 with every expert's pivot chain advancing
+together, and the solves and products are batched.  A stack
 larger than :data:`BATCHED_STACK_BYTES` is factored and solved one
 expert at a time instead (the JAX package's ``lax.map``).
 
@@ -89,7 +90,7 @@ def factorize(kern: Kernel, params, x, y, config: Config = DEFAULT, device=None)
     p_all = params if params.ndim == 2 else params.expand(nc, -1)
     if _per_expert(x):
         return _stack_states(_factorize_one(kern, p_all[i], x[i], y[i], config) for i in range(nc))
-    grams = torch.stack([train_gram(kern, p_all[i], x[i], config) for i in range(nc)])
+    grams = train_gram(kern, params, x, config)
     res = linalg.safe_cholesky(grams, config)
     del grams
     w = linalg.cholesky_solve(res.chol, y)

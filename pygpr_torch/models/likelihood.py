@@ -13,10 +13,11 @@ Gradient strategies (``config.grad_mode``):
   * ``"ad"`` — autograd through the laddered Cholesky.
 
 A leading committee axis ``[nc, n, d]`` is a loop over experts (fast
-mode) or one batched factorization (value and ``"ad"`` mode).  A leading
-axis of the parameters alone, ``params [C, nhp]`` with one shared
-``x [n, d]`` (the chains of ``sample.mcmc``), is one batched
-factorization of the ``[C, n, n]`` stack of grams.
+mode) or one stack of grams and one batched factorization (value and
+``"ad"`` mode).  A leading axis of the parameters alone, ``params [C,
+nhp]`` with one shared ``x [n, d]`` (the chains of ``sample.mcmc``), is
+the same: the ``[C, n, n]`` stack built in one call with x shared, never
+copied.
 """
 
 from __future__ import annotations
@@ -46,12 +47,12 @@ def _nlml_one(kern: Kernel, params, x, y, config: Config) -> Tensor:
 
 
 def _nlml_batched_vals(kern, params, x, y, config: Config) -> Tensor:
-    """Committee NLML ``[nc]``: grams built per expert, one laddered
-    Cholesky over the ``[nc, n, n]`` stack (each expert on its own rung)."""
-    nc = x.shape[0]
-    p_all = params if params.ndim == 2 else params.expand(nc, -1)
-    grams = torch.stack([train_gram(kern, p_all[i], x[i], config) for i in range(nc)])
-    L = linalg.safe_cholesky(grams, config).chol
+    """NLML ``[nb]`` of a stack: the grams as one stack (``train_gram``:
+    one K1 launch for the canonical kernel in f32 on the card), one
+    laddered Cholesky over ``[nb, n, n]`` (each matrix on its own rung).
+    ``x [nb, n, d]`` with ``params [nb, nhp]`` or ``[nhp]`` (a committee),
+    or one shared ``x [n, d]`` with ``params [nb, nhp]`` (chains)."""
+    L = linalg.safe_cholesky(train_gram(kern, params, x, config), config).chol
     z = linalg.solve_lower(L, y)
     return 0.5 * torch.sum(z * z, dim=-1) + linalg.half_logdet_from_chol(L) + _const(y.shape[-1])
 
@@ -62,8 +63,7 @@ def nlml(kern: Kernel, params, x, y, config: Config = DEFAULT) -> Tensor:
     if x.ndim == 3:
         return _nlml_batched_vals(kern, params, x, y, config)
     if params.ndim == 2:
-        c = params.shape[0]
-        return _nlml_batched_vals(kern, params, x.expand(c, *x.shape), y.expand(c, -1), config)
+        return _nlml_batched_vals(kern, params, x, y.expand(params.shape[0], -1), config)
     return _nlml_one(kern, params, x, y, config)
 
 

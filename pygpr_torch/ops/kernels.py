@@ -17,11 +17,13 @@ parameterization and packed order:
 
 Methods take one unbatched ``[n, d]`` input; :func:`kernel_matrix`,
 :func:`kernel_diag` and :func:`kernel_and_grad` loop over a leading
-committee axis.  :func:`train_gram` is the train-gram entry of the NLML
-and dispatches to the fused gram kernel (``ops.gram``) for the canonical
-RBF + white noise alone.  ``matrix_and_grad`` is analytic where the JAX
-class writes it out and ``torch.func.jacfwd`` of ``matrix`` where the JAX
-class takes ``jax.jacfwd``, laid out ``[nhp, n, n]``.
+committee axis.  :func:`train_gram` is the train-gram entry of the NLML,
+of one gram or a stack (``jax.vmap`` of it in the JAX package), and
+dispatches to the fused gram kernel (``ops.gram``, one launch a stack)
+for the canonical RBF + white noise alone.
+``matrix_and_grad`` is analytic where the JAX class writes it out and
+``torch.func.jacfwd`` of ``matrix`` where the JAX class takes
+``jax.jacfwd``, laid out ``[nhp, n, n]``.
 
 Kinks follow the JAX package's gradient rules: a max, min or clip splits
 the gradient in half at a tie, as ``lax.max`` does (``torch.maximum`` and
@@ -940,11 +942,23 @@ def kernel_and_grad(kern: Kernel, params, x, *, config: Config = DEFAULT) -> Tup
 
 
 def train_gram(kern: Kernel, params, x, config: Config = DEFAULT) -> Tensor:
-    """Unbatched train gram K(x, x).  The canonical RBF+WhiteNoise on an
-    f32 input of a width the fused kernel takes goes through
-    :func:`pygpr_torch.ops.gram.rbf_noise_gram` (the CUDA kernel on the
-    card, its plain version on the CPU); anything else through
-    ``kern.matrix``.  Differentiable on both paths."""
+    """Train gram K(x, x) ``[n, n]``, or a stack ``[nb, n, n]``, the
+    counterpart of the JAX package's ``train_gram`` and of ``jax.vmap`` of
+    it: ``x [n, d]`` or ``[nb, n, d]`` with ``params [nhp]`` or
+    ``[nb, nhp]`` (a shared input is one tensor for the whole stack).  The
+    canonical RBF+WhiteNoise on an f32 input of a width the fused kernel
+    takes is one call of :func:`pygpr_torch.ops.gram.rbf_noise_gram` (one
+    K1 launch on the card, however deep the stack, a shared input never
+    copied; its plain version on the CPU); anything else ``kern.matrix``,
+    a matrix at a time.  Differentiable on both paths."""
     if gram.takes(x) and gram.matches_rbf_noise(kern):
+        if params.ndim == 2 and params.stride(0) != 0:
+            params = params.contiguous()  # a column slice of a stack of θ; a few hundred bytes
         return gram.rbf_noise_gram(params, x)
-    return kern.matrix(params, x, config=config)
+    if x.ndim == 2 and params.ndim == 1:
+        return kern.matrix(params, x, config=config)
+    nb = x.shape[0] if x.ndim == 3 else params.shape[0]
+    return torch.stack([
+        kern.matrix(params[i] if params.ndim == 2 else params, x[i] if x.ndim == 3 else x, config=config)
+        for i in range(nb)
+    ])

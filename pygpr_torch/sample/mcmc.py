@@ -8,9 +8,9 @@ hyperparameter posterior over u = log θ::
 (or explicit θ-space priors with the change-of-variables Jacobian).
 
 The JAX package ``vmap``s one ``lax.scan`` chain per chain.  Here the
-chains lie on a leading axis: u is ``[C, nhp]``, the C grams are built by
-``train_gram`` (the fused gram kernel K1 for ``Sum(RBF, WhiteNoise)`` in
-f32 on the card) and stacked into ``[C, n, n]``, and one laddered
+chains lie on a leading axis: u is ``[C, nhp]``, the ``[C, n, n]`` stack
+of grams is built by one ``train_gram`` call (one launch of the fused gram
+kernel K1 for ``Sum(RBF, WhiteNoise)`` in f32 on the card, x shared), and one laddered
 ``safe_cholesky`` factors the stack, each matrix on its own rung (kernel
 K3 at n ≤ 1024 in f32).  Accept and reject stay on the device
 (``torch.where``): a step reads nothing on the host beyond the ladder's

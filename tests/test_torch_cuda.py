@@ -43,6 +43,84 @@ def test_gram_kernel_matches_plain(n, d, dev):
     assert (K - gram.rbf_noise_gram_plain(pt, xt)).abs().max().item() <= 1e-5
 
 
+def _gram_stack(nb, n, d, x_shared, p_shared, dev, seed=0):
+    """(params, x) of a stack on the card: one x ``[n, d]`` expanded along
+    the stack (batch stride 0) or ``[nb, n, d]``; one params expanded or
+    ``[nb, d + 2]``, each row its own."""
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.uniform(0.0, 2.0, (1 if x_shared else nb, n, d)), dtype=torch.float32, device=dev)
+    p = rng.uniform(0.8, 1.2, (1 if p_shared else nb, d + 2))
+    p[:, -1] = 0.1
+    return torch.tensor(p, dtype=torch.float32, device=dev).expand(nb, d + 2), x.expand(nb, n, d)
+
+
+#: (nb, n, d, x shared, params shared): the MCMC chains, the 16 × 512 + 256
+#: committee, a ragged n (the one-float store path), the flagship's d and
+#: the widest d
+STACKS = [(4, 1024, 1, True, False), (16, 768, 2, False, False), (5, 63, 2, False, True),
+          (3, 300, 3, True, True), (3, 130, 64, False, False)]
+
+
+@pytest.mark.parametrize("nb,n,d,x_shared,p_shared", STACKS)
+def test_gram_stack_equals_single_launches_and_is_symmetric(nb, n, d, x_shared, p_shared, dev):
+    """One launch over a stack: each matrix bit-equal to a launch on it
+    alone, every matrix bit-symmetric, within 1e-5 of the plain version
+    (same formula and summation order; expf against torch.exp and fma
+    contraction differ), and a stride-0 input read as it is."""
+    p, x = _gram_stack(nb, n, d, x_shared, p_shared, dev)
+    K = gram.rbf_noise_gram_cuda(p, x)
+    torch.cuda.synchronize()
+    assert K.shape == (nb, n, n)
+    assert all(torch.equal(K[i], gram.rbf_noise_gram_cuda(p[i].contiguous(), x[i].contiguous())) for i in range(nb))
+    assert torch.equal(K, K.mT)
+    assert (K - gram.rbf_noise_gram_plain(p, x)).abs().max().item() <= 1e-5
+    # a shared input given unbatched, or copied out, gives the same bits
+    assert torch.equal(K, gram.rbf_noise_gram_cuda(p[0] if p_shared else p, x[0] if x_shared else x).expand_as(K))
+    assert torch.equal(K, gram.rbf_noise_gram_cuda(p.contiguous(), x.contiguous()))
+
+
+def test_gram_counts_launches_matrices_and_shapes(dev):
+    """``shapes`` is keyed (nb, n, d, distinct x, distinct θ)."""
+    p, x = _gram_stack(4, 256, 1, True, False, dev)
+    k1 = gram.rbf_noise_gram_cuda
+    keys = [(4, 256, 1, 1, 4), (1, 256, 1, 1, 1), (4, 256, 1, 4, 1)]
+    before = (k1.launches, k1.matrices, *(k1.shapes[k] for k in keys))
+    gram.rbf_noise_gram_cuda(p, x)
+    gram.rbf_noise_gram_cuda(p[0], x[0])
+    gram.rbf_noise_gram_cuda(p[0], x.contiguous())
+    assert (k1.launches, k1.matrices, *(k1.shapes[k] for k in keys)) == (
+        before[0] + 3, before[1] + 9, before[2] + 1, before[3] + 1, before[4] + 1)
+
+
+def test_train_gram_on_a_column_slice_of_theta(dev):
+    """A stack of θ sliced out of a wider one is copied to a contiguous
+    stack by ``train_gram`` (the wrapper itself refuses it), one launch."""
+    p, x = _gram_stack(4, 256, 2, True, False, dev)
+    wide = torch.cat([p, torch.ones(4, 3, device=dev)], dim=1)[:, :4]
+    k1 = gram.rbf_noise_gram_cuda
+    with pytest.raises(ValueError):
+        k1(wide, x)
+    before = k1.launches
+    K = gp.train_gram(gp.Sum((gp.RBF(), gp.WhiteNoise())), wide, x)
+    assert k1.launches == before + 1 and torch.equal(K, k1(p.contiguous(), x))
+
+
+def test_gram_stack_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    p, x = _gram_stack(3, 64, 2, False, False, dev)
+    with pytest.raises(ValueError):
+        gram.rbf_noise_gram_cuda(torch.ones(4, 4, device=dev), x)  # 4 params rows, 3 matrices
+    with pytest.raises(ValueError):
+        gram.rbf_noise_gram_cuda(p[:, :3].contiguous(), x)  # params not [nb, d + 2]
+    with pytest.raises(TypeError):
+        gram.rbf_noise_gram_cuda(p.double(), x.double())
+    with pytest.raises(ValueError):
+        gram.rbf_noise_gram_cuda(p, x.mT.contiguous().mT)  # each matrix's x not contiguous
+    with pytest.raises(ValueError):
+        gram.rbf_noise_gram_cuda(p, torch.zeros(3, 128, 2, device=dev)[:, :64])  # batch stride 256, not 128
+    with pytest.raises(ValueError):
+        gram.rbf_noise_gram_cuda(p, torch.zeros(3, 64, 2, 1, device=dev))
+
+
 @pytest.mark.parametrize("n", [256, 384, 640, 1024])
 def test_chol_inverse_kernel_matches_plain_and_f64(n, dev):
     x, _, p = _data(n)
@@ -401,7 +479,7 @@ def _chain_problem(n=1024, seed=0):
 
 def test_chain_log_posterior_and_grad_f32_vs_f64(dev):
     """The chains' log posterior and its autograd gradient at 4 chain
-    states ``[4, nhp]`` in f32 (K1 for each chain's gram, K3 on the
+    states ``[4, nhp]`` in f32 (one K1 launch for the chains' grams, K3 on the
     ``[4, 1024, 1024]`` stack) against f64 on the card, within
     ``chip_smoke.py``'s limits: about 2× the card's reading at its 8 chain
     states (1.40e-4 in value, 2.46e-2 in gradient, where the JAX package's
@@ -416,14 +494,16 @@ def test_chain_log_posterior_and_grad_f32_vs_f64(dev):
     for dt in (torch.float32, torch.float64):
         lp = mcmc.log_posterior_fn(kern, torch.tensor(x, dtype=dt, device=dev), torch.tensor(y, dtype=dt, device=dev))
         k1, k3 = gram.rbf_noise_gram_cuda, chol_batched.cholesky_batched_cuda
-        before = (k1.launches, k3.launches, k3.shapes[(4, n)])
+        before = (k1.launches, k1.matrices, k3.launches, k3.shapes[(4, n)])
         out[dt] = mcmc._value_and_grad(lp, torch.tensor(u, dtype=dt, device=dev))
         torch.cuda.synchronize()
-        launched = (k1.launches - before[0], k3.launches - before[1], k3.shapes[(4, n)] - before[2])
+        launched = (k1.launches - before[0], k1.matrices - before[1], k3.launches - before[2],
+                    k3.shapes[(4, n)] - before[3])
         if dt == torch.float32:
-            assert launched[0] == 4 and launched[1] >= 1 and launched[1] == launched[2]
+            # the 4 chains' grams in one launch, x shared
+            assert launched[:2] == (1, 4) and launched[2] >= 1 and launched[2] == launched[3]
         else:
-            assert launched == (0, 0, 0)
+            assert launched == (0, 0, 0, 0)
     (v32, g32), (v64, g64) = out[torch.float32], out[torch.float64]
     assert torch.isfinite(v32).all() and torch.isfinite(g32).all()
     assert ((v32.double() - v64).abs() / v64.abs()).max() <= 3e-4

@@ -319,3 +319,208 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         gram.rbf_noise_gram_cuda(p, x)
     with pytest.raises(ValueError):
         chol_inverse.cholesky_inverse_cuda(torch.eye(256))
+
+
+#: a stack of three grams at n = 40, d = 2, as ``jax.vmap`` of the Pallas
+#: gram takes it: θ an expert with one x shared (the MCMC chains), and x an
+#: expert with one θ shared (a committee under shared parameters)
+STACK_C, STACK_N = 3, 40
+
+
+@pytest.fixture(scope="module")
+def stack():
+    """Seeded inputs of both stack forms, and from one jitted JAX program:
+    the vmapped Pallas gram in interpret mode over both forms' six grams at
+    once (one call), its VJP at a cotangent, and the JAX package's NLML (f64)
+    of chains over one data set and of a committee."""
+    rng = np.random.default_rng(11)
+    c, n = STACK_C, STACK_N
+    inp = dict(
+        x=rng.uniform(0.0, 2.0, (n, 2)).astype(np.float32),
+        P=(np.array([1.2, 0.8, 1.1, 0.1]) * rng.uniform(0.85, 1.15, (c, 4))).astype(np.float32),
+        X=rng.uniform(0.0, 2.0, (c, n, 2)).astype(np.float32),
+        p=np.array([1.2, 0.8, 1.1, 0.1], np.float32),
+        kbar=rng.standard_normal((2 * c, n, n)).astype(np.float32),
+        y=np.sin(2.0 * rng.uniform(0.0, 2.0, (c, n))),
+    )
+    cj = gj.Sum((gj.RBF(), gj.WhiteNoise()))
+
+    def run(x, P, X, p, kbar, y):
+        # the two forms materialized into one batch: the shared inputs'
+        # cotangents are the sums of their members'
+        p_all = jnp.concatenate([P, jnp.broadcast_to(p, (c, 4))])
+        x_all = jnp.concatenate([jnp.broadcast_to(x, (c, n, 2)), X])
+        K, vjp = jax.vjp(jax.vmap(pk.rbf_noise_gram), p_all, x_all)
+        p_bar, x_bar = vjp(kbar)
+        x64, X64, P64, p64 = (a.astype(jnp.float64) for a in (x, X, P, p))
+        chains = jax.vmap(lambda q: gj.nlml(cj, q, x64, y[0]))(P64)
+        return dict(K=K, p_bar=p_bar, x_bar=x_bar, chains=chains, committee=gj.nlml(cj, p64, X64, y),
+                    committee_own=gj.nlml(cj, P64, X64, y))
+
+    with pytest.MonkeyPatch.context() as mp:
+        orig = pl.pallas_call
+        mp.setattr(pk.pl, "pallas_call", lambda *a, **k: orig(*a, **{**k, "interpret": True}))
+        want = jax.jit(run)(**{k: jnp.asarray(v) for k, v in inp.items()})
+    return inp, jax.tree_util.tree_map(np.asarray, want)
+
+
+def _stack_forms(inp, dtype=torch.float32):
+    """(params, x) of each form: θ an expert over a shared x, and a shared
+    θ over x an expert."""
+    t = {k: torch.tensor(v, dtype=dtype) for k, v in inp.items()}
+    return {"chains": (t["P"], t["x"]), "committee": (t["p"], t["X"])}
+
+
+@pytest.mark.parametrize("form", ["chains", "committee"])
+def test_plain_gram_stack_matches_vmapped_pallas(form, stack):
+    """The batched plain gram against ``jax.vmap`` of the Pallas kernel in
+    interpret mode, held as test_plain_gram_matches_pallas holds one gram:
+    the port to 1e-6 of its f64 gram, and the two apart by no more than the
+    Pallas kernel's own f64 gap + 1e-6."""
+    inp, want = stack
+    params, x = _stack_forms(inp)[form]
+    Kj = want["K"][:STACK_C] if form == "chains" else want["K"][STACK_C:]
+    Kt = gram.rbf_noise_gram_plain(params, x).numpy()
+    K64 = gram.rbf_noise_gram_plain(params.double(), x.double()).numpy()
+    assert Kt.shape == (STACK_C, STACK_N, STACK_N)
+    np.testing.assert_allclose(Kt, K64, atol=1e-6)
+    np.testing.assert_allclose(Kt, Kj, atol=np.abs(Kj - K64).max() + 1e-6)
+    # each matrix of the stack bit-equal to the plain gram of it alone
+    for i in range(STACK_C):
+        alone = gram.rbf_noise_gram_plain(params[i] if params.ndim == 2 else params, x[i] if x.ndim == 3 else x)
+        assert torch.equal(torch.from_numpy(Kt[i]), alone)
+
+
+@pytest.mark.parametrize("form", ["chains", "committee"])
+def test_gram_stack_backward_matches_vmapped_pallas_vjp(form, stack):
+    """Autograd through the batched rbf_noise_gram (the Pallas VJP as
+    batched torch ops, reduced over the stack for the shared input) against
+    ``jax.vjp`` of the vmapped Pallas gram, test_pallas.py's tolerances."""
+    inp, want = stack
+    params, x = (t.clone().requires_grad_(True) for t in _stack_forms(inp)[form])
+    half = slice(0, STACK_C) if form == "chains" else slice(STACK_C, None)
+    kbar = torch.tensor(inp["kbar"][half])
+    gp_t, gx_t = torch.autograd.grad(gram.rbf_noise_gram(params, x), (params, x), kbar)
+    gp_j, gx_j = want["p_bar"][half], want["x_bar"][half]
+    if form == "chains":
+        gx_j = gx_j.sum(0)
+    else:
+        gp_j = gp_j.sum(0)
+    assert gp_t.shape == params.shape and gx_t.shape == x.shape
+    np.testing.assert_allclose(gp_t.numpy(), gp_j, rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(gx_t.numpy(), gx_j, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("family", ["rbf_noise", "matern"])
+def test_train_gram_stack_equals_stacked_train_gram(family, dtype, stack):
+    """``train_gram`` of a stack (one call) bit-equal to a stack of its
+    calls on one matrix each, in both forms: one fused-gram call for the
+    canonical kernel in f32, a loop over ``kern.matrix`` otherwise."""
+    inp, _ = stack
+    kern = gt.Sum((gt.RBF(), gt.WhiteNoise())) if family == "rbf_noise" else gt.Sum((gt.Matern(2.5), gt.WhiteNoise()))
+    for params, x in _stack_forms(inp, dtype).values():
+        got = gt.train_gram(kern, params, x)
+        want = torch.stack([gt.train_gram(kern, params[i] if params.ndim == 2 else params,
+                                          x[i] if x.ndim == 3 else x) for i in range(STACK_C)])
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_stacked_nlml_matches_jax(stack):
+    """The NLML of 4 chains (θ ``[C, nhp]`` over one shared x) and of a
+    3-expert committee (θ shared and θ an expert) against the JAX
+    package's on the same inputs: f64 at the committee tests' rtol 1e-8,
+    and in f32 (the grams by the plain fused gram, one call a stack) to the
+    flagship's f32-against-f64 limit, 1e-4 of the JAX f64 values (these
+    read up to 1.1e-5: f32 round-off through grams of noise 0.01)."""
+    inp, want = stack
+    cov = gt.Sum((gt.RBF(), gt.WhiteNoise()))
+    for dtype, rtol in ((torch.float64, 1e-8), (torch.float32, 1e-4)):
+        forms = _stack_forms(inp, dtype)
+        P, x = forms["chains"]
+        p, X = forms["committee"]
+        y = torch.tensor(inp["y"], dtype=dtype)
+        np.testing.assert_allclose(gt.nlml(cov, P, x, y[0]).numpy(), want["chains"], rtol=rtol)
+        np.testing.assert_allclose(gt.nlml(cov, p, X, y).numpy(), want["committee"], rtol=rtol)
+        np.testing.assert_allclose(gt.nlml(cov, P, X, y).numpy(), want["committee_own"], rtol=rtol)
+
+
+def test_stacks_built_in_one_gram_call(stack, monkeypatch):
+    """The committee NLML, the chains' NLML and ``exact_gp.factorize`` of a
+    committee build their f32 stack of canonical grams with one call of the
+    fused gram (on the card, one K1 launch), the chains' x never expanded."""
+    from pygpr_torch.models import exact_gp, likelihood
+
+    calls = []
+    plain = gram.rbf_noise_gram_plain
+
+    def counted(params, x):
+        calls.append((tuple(params.shape), tuple(x.shape)))
+        return plain(params, x)
+
+    monkeypatch.setattr(gram, "rbf_noise_gram_plain", counted)
+    inp, _ = stack
+    forms = _stack_forms(inp)
+    cov = gt.Sum((gt.RBF(), gt.WhiteNoise()))
+    y = torch.tensor(inp["y"], dtype=torch.float32)
+    P, x = forms["chains"]
+    p, X = forms["committee"]
+    c, n = STACK_C, STACK_N
+    for run, shapes in (
+        (lambda: likelihood.nlml(cov, P, x, y[0]), ((c, 4), (n, 2))),
+        (lambda: likelihood._nlml_batched_vals(cov, p, X, y, gt.DEFAULT), ((4,), (c, n, 2))),
+        (lambda: exact_gp.factorize(cov, P, X, y), ((c, 4), (c, n, 2))),
+    ):
+        calls.clear()
+        run()
+        assert calls == [shapes]
+
+
+@pytest.mark.parametrize("case", ["unbatched", "stack", "expanded", "one_row", "strided", "expanded_strided"])
+def test_gram_batch_stride_rule(case):
+    """The batch stride the card's wrapper passes for each input form
+    (strides only, so it runs on CPU tensors): 0 for an unbatched or an
+    expanded input, the row size of a contiguous stack; a view it cannot
+    pass is refused."""
+    x = torch.zeros(5, 3)
+    t, want = {
+        "unbatched": (x, 0),
+        "stack": (torch.zeros(4, 5, 3), 15),
+        "expanded": (x.expand(4, 5, 3), 0),
+        "one_row": (x[None], 15),
+        "strided": (torch.zeros(4, 5, 6)[..., :3], None),
+        "expanded_strided": (torch.zeros(5, 6)[:, :3].expand(4, 5, 3), None),
+    }[case]
+    if want is None:
+        with pytest.raises(ValueError, match="contiguous"):
+            gram._batch_stride(t, 2, "x")
+    else:
+        assert gram._batch_stride(t, 2, "x") == want
+
+
+def test_gram_stack_bytes_count_shared_inputs_once():
+    """A shared x or θ is read once, not once a matrix."""
+    nb, n, d = 4, 1024, 1
+    assert gram.stack_bytes(nb, n, d, 1, nb) == 4.0 * (nb * n * n + n * d + nb * (d + 2))
+    assert gram.stack_bytes(nb, n, d, nb, nb) - gram.stack_bytes(nb, n, d, 1, 1) == 4.0 * (nb - 1) * (n * d + d + 2)
+
+
+def test_train_gram_takes_a_column_slice_of_theta(stack):
+    """A stack of θ that is a column slice of a wider one (``split_params``
+    of a mean's parameters) is made contiguous before the fused gram,
+    whose card wrapper refuses a strided stack."""
+    inp, _ = stack
+    P, x = _stack_forms(inp)["chains"]
+    wide = torch.cat([P, torch.ones(STACK_C, 2)], dim=1)[:, : P.shape[1]]
+    assert not wide.is_contiguous()
+    calls = []
+    plain = gram.rbf_noise_gram_plain
+
+    def counted(params, xx):
+        calls.append(params.is_contiguous())
+        return plain(params, xx)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(gram, "rbf_noise_gram_plain", counted)
+        got = gt.train_gram(gt.Sum((gt.RBF(), gt.WhiteNoise())), wide, x)
+    assert calls == [True] and torch.equal(got, plain(P, x))
