@@ -18,7 +18,10 @@ Adam fit, CG predict) and sparse SGPR (collapsed ELBO, L-BFGS fit,
 predict) on the bare ``RBF()``; MCMC over the hyperparameters (RWM, HMC,
 NUTS) and elliptical slice sampling of latents; the non-Gaussian and
 variational models (observation likelihoods, ``LaplaceGP``, ``EPGP``,
-``SVGP``, random Fourier features, ``DeepGP``); and the benchmark entry points
+``SVGP``, random Fourier features, ``DeepGP``); the structured exact models
+(``KroneckerGP`` on a grid, the state-space ``StateSpaceGP`` for 1-D
+Matérn time series with its parallel scans and adjoint gradient, and SKI,
+``SKIGP``, with its direct Woodbury and Krylov paths); and the benchmark entry points
 (``pygpr_torch.bench``, with its stage probe
 ``pygpr_torch.bench.mfu_probe``).  On an NVIDIA H100 the train gram of
 ``Sum((RBF(), WhiteNoise()))``, the fused Cholesky plus triangular
@@ -88,6 +91,7 @@ from pygpr_torch.models import (
     ep,
     grbcm,
     iterative,
+    kronecker,
     laplace,
     means,
     metrics,
@@ -95,6 +99,8 @@ from pygpr_torch.models import (
     priors,
     rff,
     sgpr,
+    ski,
+    statespace,
     svgp,
 )
 from pygpr_torch.ops.coregion import ICM, TaskNoise, stack_outputs, with_task
@@ -103,6 +109,9 @@ from pygpr_torch.models.means import ConstantMean, LinearMean, Mean, ZeroMean, f
 from pygpr_torch.models.priors import Gamma, HalfNormal, LogNormal
 from pygpr_torch.models.grbcm import GRBCM
 from pygpr_torch.models.iterative import IterativeGP
+from pygpr_torch.models.kronecker import KroneckerGP
+from pygpr_torch.models.ski import SKIGP
+from pygpr_torch.models.statespace import StateSpaceGP
 from pygpr_torch.models.sgpr import SGPR
 from pygpr_torch.models.svgp import SVGP
 from pygpr_torch.models.obs import BernoulliLogit, BernoulliProbit, GaussianLik, PoissonLik, StudentTLik

@@ -11,14 +11,15 @@ Counterpart of ``pygpr_tpu/bench/__init__.py``, on one CUDA device:
   * :func:`bench_iterative_large_n` — the matrix-free exact GP at
     n = 32768.
   * :func:`bench_sgpr_large_n` — SGPR at N = 98304, m = 1024.
+  * :func:`bench_statespace_large` — the exact 1-D Matérn-3/2 GP at
+    n = 10⁶ through the state-space parallel scans.
 
 Each takes the JAX function's defaults, data generators and seeds and
 returns a record with its keys, numbers unrounded; each takes ``device``
 ("cuda" unless given; the tests pass "cpu" at tiny sizes).  Times are host
 clock around work that ends in a device synchronize.  The JAX package's
 ``weak_scaling`` and ``million_point_mesh_run`` wait for the port's
-``parallel/`` layer and ``bench_statespace_large`` for its
-``models/statespace.py`` (ROADMAP items 16 and 14).
+``parallel/`` layer (ROADMAP item 16).
 
 ``python -m pygpr_torch.bench [flag]`` prints them as JSON lines; the
 stage probe of the flagship is ``python -m pygpr_torch.bench.mfu_probe``.
@@ -461,4 +462,116 @@ def bench_sgpr_large_n(n: int = 98304, m: int = 1024, n_query: int = 8192, dim: 
     }
     if return_posterior:
         return rec, mean, var
+    return rec
+
+
+def statespace_large_data(n: int = 1_000_000, seed: int = 3):
+    """The data of :func:`bench_statespace_large` (NumPy, f32): t ~ U(0,
+    2000) sorted, y = sin(0.3t) + 0.1·N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0.0, 2000.0, n)).astype(np.float32)
+    y = (np.sin(0.3 * t) + 0.1 * rng.normal(size=n)).astype(np.float32)
+    return t, y
+
+
+def _peak_bytes(device, fn):
+    """``(fn(), peak device bytes allocated during it)`` on a CUDA device;
+    ``None`` for the peak elsewhere."""
+    if torch.device(device).type != "cuda":
+        return fn(), None
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = fn()
+    torch.cuda.synchronize(device)
+    return out, torch.cuda.max_memory_allocated(device)
+
+
+def bench_statespace_large(n: int = 1_000_000, nu: float = 1.5, nq: int = 4096, reps: int = 3, seed: int = 3,
+                           include_posterior: bool = True, device="cuda") -> dict:
+    """Exact 1-D Matérn-3/2 GP at n = 10⁶ on one card through the
+    state-space parallel scans (``models/statespace``).
+
+      * NLML value + gradient seconds an evaluation at the full n by the
+        adjoint scan (``nlml_ss_adjoint_value_and_grad``); the dense
+        pipeline at n = 10⁶ would need an 8 TB gram.
+      * the NLML value alone at the full n, and value + gradient by
+        autograd through the scan at n/8 (as the JAX bench).
+      * the smoothed posterior at ``nq`` query times, the host merge of
+        the queries included.
+
+    A failure of the adjoint gradient fails the run.  Beside the JAX
+    bench's keys, the record holds the peak device bytes of the adjoint
+    and the autograd evaluations (``None`` off the card).
+    """
+    from pygpr_torch.models import statespace
+
+    t, y = statespace_large_data(n, seed)
+    t_j, y_j = (torch.as_tensor(a, device=device) for a in (t, y))
+    p0 = torch.tensor([1.0, 1.0, 0.1], dtype=torch.float32, device=device)
+
+    def adjoint():
+        return statespace.nlml_ss_adjoint_value_and_grad(nu, p0, t_j, y_j)
+
+    (va, ga), adj_peak = _peak_bytes(device, adjoint)
+    v0 = float(va)
+    if not (np.isfinite(v0) and bool(torch.isfinite(ga).all())):
+        raise FloatingPointError(f"non-finite state-space adjoint value or gradient: {v0}, {ga.tolist()}")
+    _, s = _timed(lambda: [adjoint() for _ in range(reps)], device)
+    grad_eval_s = s / reps
+    rec = {
+        "metric": "statespace_exact_nlml_grad_n1e6_single_chip",
+        "value": 1.0 / grad_eval_s,
+        "unit": "evals/s",
+        "n_total": n,
+        "nu": nu,
+        "nlml_at_init": v0,
+        "adjoint_grad_seconds_per_eval": grad_eval_s,
+        "adjoint_grad_n": n,
+        "grad_note": "exact value+gradient at the full n by the adjoint scan (models/statespace.py): the filter, "
+                     "one backward affine scan and an elementwise linear functional; no scan is differentiated",
+        "vs_baseline": None,
+        "baseline": "reference dense pipeline cannot run at n=1e6 (8 TB gram); this is the exact Matern NLML via "
+                    "the O(n) associative-scan state-space form",
+        "adjoint_grad_peak_bytes": adj_peak,
+    }
+    if not include_posterior:
+        return rec
+
+    with torch.no_grad():
+        value = lambda: statespace.nlml_ss(nu, p0, t_j, y_j)
+        v = value()
+        _, s = _timed(lambda: [value() for _ in range(reps)], device)
+    if not np.isfinite(float(v)):
+        raise FloatingPointError("non-finite state-space NLML")
+    rec["nlml_value_seconds_per_eval"] = s / reps
+
+    n_grad = n // 8
+    tg, yg = t_j[:n_grad], y_j[:n_grad]
+
+    def ad():
+        q = p0.clone().requires_grad_(True)
+        with torch.enable_grad():
+            val = statespace.nlml_ss(nu, q, tg, yg)
+            (g,) = torch.autograd.grad(val, q)
+        return val.detach(), g
+
+    (vd, gd), ad_peak = _peak_bytes(device, ad)
+    if not (np.isfinite(float(vd)) and bool(torch.isfinite(gd).all())):
+        raise FloatingPointError("non-finite state-space NLML gradient by autograd")
+    _, s = _timed(lambda: [ad() for _ in range(reps)], device)
+    rec["ad_grad_n"] = n_grad
+    rec["ad_grad_seconds_per_eval"] = s / reps
+    rec["ad_grad_peak_bytes"] = ad_peak
+
+    # smoothed posterior, timed end to end (the host merge of the queries
+    # into the chain is part of the path)
+    tq = np.linspace(0.0, 2000.0, nq).astype(np.float32)
+    with torch.no_grad():
+        statespace.posterior_ss(nu, p0, t_j, y_j, tq)
+        (mq, vq), post_s = _timed(lambda: statespace.posterior_ss(nu, p0, t_j, y_j, tq), device)
+    mq_h, vq_h = mq.cpu().numpy(), vq.cpu().numpy()
+    if not (np.isfinite(mq_h).all() and (vq_h > 0).all()):
+        raise FloatingPointError("state-space posterior not finite and positive")
+    rec.update(posterior_nq=nq, posterior_seconds=post_s,
+               posterior_rmse_vs_true=float(np.sqrt(np.mean((mq_h - np.sin(0.3 * tq)) ** 2))))
     return rec

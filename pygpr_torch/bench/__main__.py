@@ -11,10 +11,12 @@ the CUDA device.
                 the --large-n line (same function, N and queries)
   --grbcm-1m    BASELINE config 5, one-card half: grBCM serving throughput
                 at N = 10⁶ (2000 experts, T = L⁻¹ resident)
+  --statespace  the exact 1-D Matérn-3/2 GP at n = 10⁶ through the
+                state-space parallel scans: adjoint value + gradient, the
+                value alone, autograd at n/8 and the smoothed posterior
 
-``--million`` (the committee sharded over a device mesh) and
-``--statespace`` (the state-space GP at n = 10⁶) are not ported yet and
-exit with status 2.
+``--million`` (the committee sharded over a device mesh) is not ported
+yet and exits with status 2.
 """
 
 import json
@@ -23,7 +25,6 @@ import sys
 #: flags of the JAX bench whose paths the port does not have yet
 _WAITING = {
     "--million": "grbcm over a device mesh needs the port's parallel/ layer (ROADMAP item 16)",
-    "--statespace": "the state-space GP needs the port's models/statespace.py (ROADMAP item 14)",
 }
 
 
@@ -40,6 +41,7 @@ def _main() -> int:
         "--sgpr": bench.bench_sgpr_large_n,
         "--iterative": bench.bench_iterative_large_n,
         "--grbcm-1m": bench.bench_grbcm_million_serving,
+        "--statespace": bench.bench_statespace_large,
     }
     for flag, fn in entries.items():
         if flag in args:

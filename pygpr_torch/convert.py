@@ -3,8 +3,8 @@
 A posterior state (one GP or a committee's batched state), a grBCM
 ``FitInfo``, an ``IterativeGP``, an ``SGPRState``, an observation
 likelihood, SVGP's ``SVGPParams``, the deep GP's ``DGPParams``, an
-``RFFBasis``, a ``LaplaceState``, an ``EPState`` or a parameter vector
-of ``pygpr_tpu``
+``RFFBasis``, a ``LaplaceState``, an ``EPState``, a SKI ``Grid`` or
+``SKIStats``, a ``KronState`` or a parameter vector of ``pygpr_tpu``
 becomes the port's own through ``np.asarray`` of each field; nothing here
 imports the JAX package.  The packed parameter order is the same in both, e.g.
 ``[σ, ℓ₁..ℓ_d, σₙ]`` for ``Sum((RBF(), WhiteNoise()))``, so the kernel
@@ -34,6 +34,8 @@ from pygpr_torch.models.exact_gp import GPState
 from pygpr_torch.config import DEFAULT, Config
 from pygpr_torch.models.grbcm import FitInfo
 from pygpr_torch.models.iterative import IterativeGP
+from pygpr_torch.models.kronecker import KronState
+from pygpr_torch.models.ski import Grid, SKIStats
 from pygpr_torch.models.sgpr import SGPRState
 from pygpr_torch.ops import coregion, fixed_noise, kernels
 from pygpr_torch.ops.kernels import Kernel, Sum
@@ -206,3 +208,35 @@ def laplace_state_from_numpy(arrays: Mapping[str, np.ndarray], device) -> Laplac
 def ep_state_from_numpy(arrays: Mapping[str, np.ndarray], device) -> EPState:
     """An ``EPState`` from NumPy copies of the JAX fields."""
     return _fields_from_numpy(EPState, arrays, device, "ep_state_from_numpy")
+
+
+def grid_from_numpy(lo, h, sizes) -> Grid:
+    """A SKI ``Grid`` from the JAX one's fields (``lo``, ``h``: NumPy
+    ``[d]``; ``sizes``: a tuple), e.g. ``grid_from_numpy(*jax_grid)``.  The
+    geometry is host NumPy in both packages."""
+    return Grid(lo=np.asarray(lo, np.float64), h=np.asarray(h, np.float64), sizes=tuple(int(s) for s in sizes))
+
+
+def ski_stats_from_numpy(arrays: Mapping[str, np.ndarray], device, dtype=None) -> SKIStats:
+    """``SKIStats`` from NumPy copies of the JAX fields (z, wty, yty and the
+    count n), for example ``{k: np.asarray(v) for k, v in
+    jax_stats._asdict().items()}``; dtype follows the arrays unless given."""
+    missing = [f for f in SKIStats._fields if f not in arrays]
+    if missing:
+        raise ValueError(f"ski_stats_from_numpy: missing fields {missing}")
+    put = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    return SKIStats(z=put(arrays["z"]), wty=put(arrays["wty"]), yty=put(arrays["yty"]), n=int(arrays["n"]))
+
+
+def kron_state_from_numpy(arrays: Mapping[str, object], device) -> KronState:
+    """A ``KronState`` from NumPy copies of the JAX fields: ``axes`` and
+    ``eigvecs`` as sequences of arrays, the rest arrays.  Eigenvectors
+    carried across keep the JAX package's signs, so the port's
+    ``predict_kron`` on the state is the JAX package's function."""
+    missing = [f for f in KronState._fields if f not in arrays]
+    if missing:
+        raise ValueError(f"kron_state_from_numpy: missing fields {missing}")
+    put = lambda a: torch.tensor(np.asarray(a), device=device)
+    return KronState(axes=tuple(put(a) for a in arrays["axes"]), params=put(arrays["params"]),
+                     eigvecs=tuple(put(q) for q in arrays["eigvecs"]), denom=put(arrays["denom"]),
+                     alpha=put(arrays["alpha"]), nlml=put(arrays["nlml"]), ok=put(arrays["ok"]))

@@ -98,13 +98,29 @@ def test_headline_rates_are_finite():
     assert tb.bench_predictions(nc=2, nls=32, ng=16, n_query=64, reps=2, device="cpu") > 0
 
 
-@pytest.mark.parametrize("flag", ["--statespace", "--million"])
+@pytest.mark.parametrize("flag", ["--million"])
 def test_unported_flags_exit_non_zero(flag):
     out = subprocess.run([sys.executable, "-m", "pygpr_torch.bench", flag], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode != 0
     assert "ROADMAP item" in out.stderr
     assert out.stdout == ""
+
+
+def test_statespace_bench_record_has_the_jax_keys():
+    """``bench_statespace_large`` at a tiny n on the CPU: the JAX bench's
+    record keys (its adjoint record and the posterior stage's additions),
+    plus the two peak-memory keys of the port (``None`` off the card)."""
+    rec = tb.bench_statespace_large(n=512, nq=16, reps=1, device="cpu")
+    added = {"nlml_value_seconds_per_eval", "ad_grad_n", "ad_grad_seconds_per_eval", "posterior_nq",
+             "posterior_seconds", "posterior_rmse_vs_true"}
+    assert set(rec) == _jax_record_keys("bench_statespace_large") | added | {"adjoint_grad_peak_bytes",
+                                                                              "ad_grad_peak_bytes"}
+    json.dumps(rec)
+    assert all(math.isfinite(v) for v in rec.values() if isinstance(v, float))
+    assert rec["ad_grad_n"] == 64 and rec["adjoint_grad_peak_bytes"] is None
+    slim = tb.bench_statespace_large(n=256, reps=1, include_posterior=False, device="cpu")
+    assert set(slim) == _jax_record_keys("bench_statespace_large") | {"adjoint_grad_peak_bytes"}
 
 
 def _million_serving_f64(nc: int, nq: int, chunk_q: int = 256):

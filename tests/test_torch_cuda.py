@@ -530,3 +530,57 @@ def test_latent_and_inducing_factorizations_launch_k3(dev):
     basis = rff.make_basis(128, 2, seed=0, device=dev)
     st = rff.factorize_rff(basis, torch.tensor([1.0, 1.0, 1.0, 0.3], device=dev), x, y)
     assert bool(st.ok) and k3.shapes[(1, 128)] >= 1
+
+
+def test_ski_direct_path_factors_its_grid_grams_with_k3(dev):
+    """SKI's direct path at g = 512 (bench.py::bench_ski_direct's grid,
+    n = 10⁵): K3 factors the grid gram and Z = WᵀW at [512, 512] inside
+    the NLML, at the ladder's rung each factor's L Lᵀ within n·ε_f32 of
+    max|A| of the plain version's (the f32 grid gram takes jitter 1e-4,
+    where the factors themselves part by up to cond(A)·ε), and the
+    analytic value and gradient finite."""
+    from pygpr_torch.models import ski
+    from pygpr_torch.ops import linalg
+
+    rng = np.random.default_rng(7)
+    x = np.sort(rng.uniform(0.0, 8.0, (100_000, 1)).astype(np.float32), axis=0)
+    y = (np.sin(2.0 * x[:, 0]) + 0.1 * rng.normal(size=100_000)).astype(np.float32)
+    grid = ski.make_grid(x, 512)
+    stats = ski.compute_stats_streamed((x, y), grid, device=dev)
+    k3 = chol_batched.cholesky_batched_cuda
+    k3.shapes.clear()
+    p = torch.tensor([1.0, 1.0, 0.1], device=dev, requires_grad=True)
+    v = ski.nlml_direct(gp.RBF(), p, stats, grid)
+    (g,) = torch.autograd.grad(v, p)
+    assert k3.shapes[(1, 512)] >= 2
+    assert torch.isfinite(v) and torch.isfinite(g).all()
+    tgram = ski.grid_gram_factors(torch.ones(2, device=dev), grid, torch.float32)[0]
+    for K in (tgram, stats.z):
+        A = linalg.add_diag(K, linalg.safe_cholesky(K).jitter).contiguous()
+        L, Lp = chol_batched.cholesky_batched_cuda(A), chol_batched.cholesky_batched_plain(A)
+        assert torch.isfinite(L).all()
+        assert ((L @ L.T - Lp @ Lp.T).abs().max() / A.abs().max()).item() <= 512 * torch.finfo(torch.float32).eps
+
+
+def test_statespace_scan_f32_at_a_million_points(dev):
+    """The f32 parallel scan at n = 10⁶ on the bench's data (duplicate
+    times from the f32 rounding included): the value, the adjoint gradient
+    and the posterior finite, and the value and gradient within 10× the
+    JAX package's own f32 gaps (1.02e-6, 5.33e-4) of f64 on the same times."""
+    from pygpr_torch import bench
+    from pygpr_torch.models import statespace
+
+    t, y = bench.statespace_large_data()
+    assert (np.diff(t) == 0).any()
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        tt, yt = (torch.tensor(a, dtype=dt, device=dev) for a in (t, y))
+        p = torch.tensor([1.0, 1.0, 0.1], dtype=dt, device=dev)
+        with torch.no_grad():
+            out[dt] = statespace.nlml_ss_adjoint_value_and_grad(1.5, p, tt, yt)
+            m, v = statespace.posterior_ss(1.5, p, tt, yt, np.linspace(0.0, 2000.0, 64))
+        assert torch.isfinite(m).all() and (v > 0).all()
+    (v32, g32), (v64, g64) = out[torch.float32], out[torch.float64]
+    assert torch.isfinite(v32) and torch.isfinite(g32).all()
+    assert abs(v32.item() - v64.item()) / abs(v64.item()) <= 1.02e-5
+    assert (torch.linalg.norm(g32.double() - g64) / torch.linalg.norm(g64)).item() <= 5.33e-3
