@@ -30,8 +30,15 @@ random Fourier features and a deep GP on the SGPR bench's inputs), the
 structured exact models at the JAX benches' sizes (the Kronecker GP on a
 512 × 512 grid, the state-space GP at n = 10⁶, SKI's direct path at
 n = 10⁶ on a 512-node grid, its grid gram and statistics factored by K3,
-and its Krylov path at n = 65536 on a 96 × 96 grid), and prints one JSON
-object per phase.  The last line is
+and its Krylov path at n = 65536 on a 96 × 96 grid), the wrapper models
+at users' sizes (the Student-t process, the warped GP, multi-fidelity
+co-kriging and the heteroscedastic GP at n = 4096, DKL at 4096, the GPLVM
+at 1024 × 12, the derivative GP on a [1024, 1024] joint gram, each with its
+f32 gap against f64 on the card) and the utilities and optimizers on them
+(the resumable fit, SVGP streamed from a memory-mapped dataset, state
+diagnostics, a profile, Bayesian optimization of Hartmann-6 and of
+Branin), and prints
+one JSON object per phase.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; any failed check
 exits non-zero without it.  Without a CUDA device it exits 1 at once.
 Imports nothing of JAX or of the JAX package.
@@ -681,8 +688,9 @@ def mcmc_phase(h):
 
 
 #: the non-Gaussian phase's fits: n and L-BFGS iterations of LaplaceGP and
-#: EPGP (cut from the JAX default of 100 iterations for the time limit)
-NG_N, NG_FIT_ITERS = 2048, 30
+#: EPGP (cut from the JAX default of 100 iterations to keep the script
+#: under 800 s on an H100: Laplace and EP about 2.4 s an iteration)
+NG_N, NG_FIT_ITERS = 2048, 20
 #: ESS's n, SVGP's inducing points, RFF's features and the deep GP's
 #: inducing points per layer (on the SGPR bench's N = 98304 inputs)
 ESS_N, SVGP_M, RFF_FEATURES, DGP_M = 1024, 1024, 1024, 128
@@ -1279,6 +1287,610 @@ def ski_phase(h):
     out["ok"] = all(checks)
     emit(out)
     del model, st64
+    torch.cuda.empty_cache()
+
+
+#: f32 against f64 on the card at each wrapper model's fixed point (value,
+#: gradient; relative, in norm): the JAX package's own f32-against-f64 gaps
+#: on the same problem on the CPU, read by each model's test file run as a
+#: script (`JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_<model>.py`);
+#: the limits are 10x these.  The points: the TP at θ = [1, 1, 1, 1, 0.1],
+#: ν = 5; the warped GP at the same θ and TanhWarp(3)'s init; multi-fidelity
+#: stage 2 at θ_lo = θ_δ = θ, ρ = 1; the heteroscedastic GP's FixedNoise mean
+#: GP at θ = [1, 1] with the true noise; DKL at its init, noise 0.1; the
+#: GPLVM's MAP objective at the PCA latents, θ = [1, 1, 1, 0.1]; the
+#: derivative GP's NLML at θ = [1, 1, 1, 1], σ_f = σ_g = 0.01, and its joint
+#: gram (every 97th entry)
+WRAPPER_GAPS_FROM_JAX = {
+    "tprocess": (7.554169066488675e-06, 0.0011920915193098813),
+    "warped": (0.0002592470468112534, 0.00018451540436315643),
+    "multifidelity": (1.2127261588447014e-06, 8.439535392298e-06),
+    "heteroscedastic": (8.789148767964645e-05, 0.019351600033809042),
+    "dkl": (3.36723154785825e-05, 7.196569800121208e-05),
+    "gplvm": (1.0717732219810242e-05, 2.7041339006368215e-05),
+    "derivative": (0.0003631757558809263, 0.010813184795281696),
+}
+DERIV_GRAM_GAP_FROM_JAX = 4.0843374245721444e-07
+#: iterations of the wrapper models' fits, cut for the script's time limit
+#: (the JAX defaults: TP, warped, multi-fidelity and the derivative GP 150
+#: L-BFGS iterations, the heteroscedastic GP 3 rounds of 100, DKL 300 Adam
+#: steps, GPLVM 300).  At the defaults the two phases took 450 s on an H100
+#: (f32 L-BFGS near its noise floor takes 6 to 35 evaluations an iteration:
+#: the TP 34.3 s, the derivative GP 93.3 s).  The comparison fits (the
+#: identity warp, the high-only GP, the plain RBF, the value-only GP) take
+#: their model's count
+TP_ITERS, WARPED_ITERS, MF_ITERS, DERIV_ITERS = 20, 30, 30, 20
+HGP_ROUNDS, HGP_ITERS, DKL_STEPS, GPLVM_ITERS = 3, 30, 300, 100
+#: the wrapper models' sizes (a rehearsal on the CPU sets them small)
+WRAP_N, MF_N_HI, GPLVM_N, DERIV_N, WRAP_QUERIES = 4096, 512, 1024, 256, 4096
+
+
+def _rmse(a, b):
+    import numpy as np
+
+    a = a.detach().double().cpu().numpy() if hasattr(a, "detach") else np.asarray(a, np.float64)
+    return float(np.sqrt(np.mean((a - np.asarray(b, np.float64)) ** 2)))
+
+
+def _gaps(h, name, fn32, fn64, u32):
+    """f32 and f64 (value, gradient) of ``fn`` at ``u`` on the card, their
+    relative gaps and the model's limits; checks under ``name``."""
+    import torch
+
+    v32, g32 = _vg(fn32, u32)
+    v64, g64 = _vg(fn64, u32.double())
+    gv, gg = _rel(v32, v64), _rel(g32, g64)
+    jv, jg = WRAPPER_GAPS_FROM_JAX[name]
+    lim = (10.0 * jv, 10.0 * jg)
+    ok = [h.check("wrapper_models", f"{name}: f32 value {gv} from f64 > {lim[0]}", gv <= lim[0]),
+          h.check("wrapper_models", f"{name}: f32 gradient {gg} from f64 > {lim[1]}", gg <= lim[1]),
+          h.check("wrapper_models", f"{name}: f32 value or gradient not finite",
+                  bool(torch.isfinite(v32) and torch.isfinite(g32).all()))]
+    return {"value": gv, "grad": gg, "limits": list(lim), "jax_cpu": [jv, jg], "value_f32": v32.item(),
+            "value_f64": v64.item()}, ok
+
+
+def wrapper_models_phase(h):
+    """The seven wrapper models on the card, one JSON line each: the TP,
+    the warped GP, multi-fidelity co-kriging, the heteroscedastic GP, DKL,
+    the GPLVM and the derivative GP, each fitted in f32 at a size its users
+    run, its checks, its K1/K2/K3 launches, and its f32 gaps against f64 on
+    the card at a fixed point (WRAPPER_GAPS_FROM_JAX)."""
+    import numpy as np
+    import torch
+
+    import pygpr_torch as gp
+    from pygpr_torch.models import derivative, exact_gp, gplvm, heteroscedastic, multifidelity, tprocess, warped
+    from pygpr_torch.models.likelihood import nlml, nlml_fast
+
+    check, dev, to_dev, timed = h.check, h.dev, h.to_dev, h.timed
+    cov = gp.Sum((gp.RBF(), gp.WhiteNoise()))
+    n, nq = WRAP_N, WRAP_QUERIES
+    xq = np.random.default_rng(7).uniform(0.0, 2.0, size=(nq, 3)).astype(np.float32)
+    (xq_t,) = to_dev(xq)
+    f_q = np.sin(2.0 * xq.astype(np.float64).sum(-1))
+    p0 = torch.tensor([1.0, 1.0, 1.0, 1.0, 0.1], dtype=torch.float32, device=dev)
+    k1_key = (1, n, 3, 1, 1)
+
+    def line(model, secs, iters, c, gaps, checks, **extra):
+        emit({"phase": "wrapper_models", "model": model, "card": h.smi, "seconds": secs, "iterations": iters,
+              "launches": {k: c[k] for k in ("k1", "k2", "k3")}, "f32_vs_f64": gaps, **extra, "ok": all(checks)})
+
+    # -- the Student-t process: make_data(4096, 3), ν₀ = 5 -------------------
+    x, y, _ = make_data(n)
+    xt, yt = to_dev(x, y)
+    h.zero_counts()
+    v0 = tprocess.nlml_tp(cov, p0, 5.0, xt, yt).item()
+    res, secs = timed(lambda: tprocess.fit_tp(cov, xt, yt, p0, 5.0, max_iter=TP_ITERS))
+    mean, var, dof = tprocess.predict_tp(cov, res.state, res.nu, xq_t)
+    c = h.read_counts()
+    k1_tp = h.wrappers["k1"].shapes[k1_key]
+    nu, rmse = res.nu.item(), _rmse(mean, f_q)
+    x64, y64 = xt.double(), yt.double()
+    gaps, checks = _gaps(h, "tprocess", lambda u: tprocess.nlml_tp(cov, u[:5], u[5], xt, yt),
+                         lambda u: tprocess.nlml_tp(cov, u[:5], u[5], x64, y64), torch.cat([p0, p0.new_tensor([5.0])]))
+    checks += [check("wrapper_models", f"tprocess: NLML did not fall {v0} -> {res.nlml.item()}", res.nlml.item() < v0),
+               check("wrapper_models", f"tprocess: ν {nu} not finite and > 2", math.isfinite(nu) and nu > 2.0),
+               check("wrapper_models", f"tprocess: rmse {rmse} >= 0.1", rmse < 0.1),
+               check("wrapper_models", "tprocess: predictive covariance not finite and > 0",
+                     bool(torch.isfinite(var).all() and (var > 0).all())),
+               check("wrapper_models", f"tprocess: K1 not launched at {k1_key} {c}", k1_tp > 0)]
+    line("tprocess", secs, None, c, gaps, checks, n=n, nlml_start=v0, nlml_fit=res.nlml.item(), nu=nu, rmse=rmse,
+         k1_at_4096=k1_tp, converged=bool(res.converged), max_iter=TP_ITERS)
+
+    # -- the warped GP: y = exp(sin(2Σx) + 0.1ε), TanhWarp(3) ----------------
+    eps = np.random.default_rng(5).normal(size=n)
+    yw = np.exp(np.sin(2.0 * x.sum(-1)) + 0.1 * eps).astype(np.float32)
+    eq = np.random.default_rng(15).normal(size=nq)
+    yq = np.exp(np.sin(2.0 * xq.sum(-1)) + 0.1 * eq).astype(np.float32)
+    (ywt,) = to_dev(yw)
+    tw = warped.TanhWarp(3)
+    wp0 = tw.init_params(ywt)
+    h.zero_counts()
+    v0 = warped.nlml_warped(cov, p0, tw, wp0, xt, ywt).item()
+    res, secs = timed(lambda: warped.fit_warped(cov, tw, xt, ywt, p0, wp0, max_iter=WARPED_ITERS))
+    (mean, var, median), pred_s = timed(lambda: warped.predict_warped(cov, res.state, tw, res.warp_params, xq_t))
+    nlpd = warped.nlpd_warped(cov, res.state, tw, res.warp_params, xq_t, yq).item()
+    c = h.read_counts()
+    k1_w = h.wrappers["k1"].shapes[k1_key]
+    ident = warped.fit_warped(cov, warped.IdentityWarp(), xt, ywt, p0, max_iter=WARPED_ITERS)
+    e = torch.zeros(0, device=dev)
+    nlpd_id = warped.nlpd_warped(cov, ident.state, warped.IdentityWarp(), e, xq_t, yq).item()
+    rmse = _rmse(median, np.exp(f_q))
+    nk = p0.shape[0]
+    yw64 = ywt.double()
+    gaps, checks = _gaps(h, "warped", lambda u: warped.nlml_warped(cov, u[:nk], tw, u[nk:], xt, ywt),
+                         lambda u: warped.nlml_warped(cov, u[:nk], tw, u[nk:], x64, yw64), torch.cat([p0, wp0]))
+    checks += [check("wrapper_models", f"warped: NLML did not fall {v0} -> {res.nlml.item()}", res.nlml.item() < v0),
+               check("wrapper_models", f"warped: median rmse {rmse} >= 0.15", rmse < 0.15),
+               check("wrapper_models", "warped: mean or variance not finite, or variance < 0",
+                     bool(torch.isfinite(mean).all() and torch.isfinite(var).all() and (var >= 0).all())),
+               check("wrapper_models", f"warped: NLPD {nlpd} not below IdentityWarp's {nlpd_id}", nlpd < nlpd_id),
+               check("wrapper_models", f"warped: K1 not launched at {k1_key} {c}", k1_w > 0)]
+    line("warped", secs, None, c, gaps, checks, n=n, nlml_start=v0, nlml_fit=res.nlml.item(), median_rmse=rmse,
+         nlpd=nlpd, nlpd_identity_warp=nlpd_id, predict_s=pred_s, predict_queries=nq,
+         inverse_steps="60 bisection + 2 Newton steps on [4096, 32] Gauss-Hermite nodes", k1_at_4096=k1_w,
+         max_iter=WARPED_ITERS)
+    del res, ident
+
+    # -- multi-fidelity: 4096 low (biased, scaled), 512 high of sin(2Σx) -----
+    rng = np.random.default_rng(0)
+    x_lo = rng.uniform(0.0, 2.0, (n, 3))
+    x_hi = rng.uniform(0.0, 2.0, (MF_N_HI, 3))
+    f_hi = lambda a: np.sin(2 * a.sum(-1))
+    f_lo = lambda a: (f_hi(a) - 0.4 * np.cos(5 * a[:, 0])) / 1.8
+    y_lo = f_lo(x_lo) + 0.05 * rng.normal(size=n)
+    y_hi = f_hi(x_hi) + 0.05 * rng.normal(size=MF_N_HI)
+    xlo, ylo, xhi, yhi = to_dev(*(a.astype(np.float32) for a in (x_lo, y_lo, x_hi, y_hi)))
+    h.zero_counts()
+    v_lo0 = nlml(cov, p0, xlo, ylo).item()
+    st_lo0 = exact_gp.factorize(cov, p0, xlo, ylo)
+    v_d0 = multifidelity.nlml_stage2(cov, p0, p0.new_tensor(1.0), cov, st_lo0, xhi, yhi).item()
+    st, secs = timed(lambda: multifidelity.fit_mf(cov, cov, xlo, ylo, xhi, yhi, params_lo0=p0, params_d0=p0,
+                                                  max_iter=MF_ITERS))
+    mean, var = multifidelity.predict_mf(cov, cov, st, xq_t)
+    c = h.read_counts()
+    k_mf = {"k1_4096": h.wrappers["k1"].shapes[k1_key], "k2_4096": h.wrappers["k2"].shapes[(n,)],
+            "k3_512": h.wrappers["k3"].shapes[(1, MF_N_HI)]}
+    hi = gp.fit_mle(cov, p0, xhi, yhi, max_iter=MF_ITERS)
+    m_hi, _ = exact_gp.predict(cov, exact_gp.factorize(cov, hi.params, xhi, yhi), xq_t, "none")
+    rmse, rmse_hi = _rmse(mean, f_q), _rmse(m_hi, f_q)
+    rho = st.rho.item()
+    xlo64, ylo64, xhi64, yhi64 = (a.double() for a in (xlo, ylo, xhi, yhi))
+
+    def stage2(xl, yl, xh, yh):
+        st0 = exact_gp.factorize(cov, p0.to(xl.dtype), xl, yl)
+        return lambda u: multifidelity.nlml_stage2(cov, u[:5], u[5], cov, st0, xh, yh)
+
+    gaps, checks = _gaps(h, "multifidelity", stage2(xlo, ylo, xhi, yhi), stage2(xlo64, ylo64, xhi64, yhi64),
+                         torch.cat([p0, p0.new_tensor([1.0])]))
+    checks += [check("wrapper_models", f"multifidelity: low NLML did not fall {v_lo0} -> {st.nlml_lo.item()}",
+                     st.nlml_lo.item() < v_lo0),
+               check("wrapper_models", f"multifidelity: stage-2 NLML did not fall {v_d0} -> {st.nlml_d.item()}",
+                     st.nlml_d.item() < v_d0),
+               check("wrapper_models", f"multifidelity: ρ {rho} not finite", math.isfinite(rho)),
+               check("wrapper_models", f"multifidelity: rmse {rmse} not below the high-only GP's {rmse_hi}",
+                     rmse < rmse_hi),
+               check("wrapper_models", f"multifidelity: K1, K2 at {n} and K3 at {MF_N_HI} not all launched {k_mf}",
+                     min(k_mf.values()) > 0)]
+    line("multifidelity", secs, None, c, gaps, checks, n_lo=n, n_hi=MF_N_HI, rho=rho, nlml_lo=[v_lo0, st.nlml_lo.item()],
+         nlml_d=[v_d0, st.nlml_d.item()], rmse=rmse, rmse_high_only=rmse_hi, by_shape=k_mf, max_iter=MF_ITERS)
+    del st, st_lo0
+
+    # -- the heteroscedastic GP: 1-D, noise std 0.05 + 0.1x ------------------
+    rng = np.random.default_rng(3)
+    xh = rng.uniform(0.0, 4.0, (n, 1)).astype(np.float32)
+    sd = 0.05 + 0.1 * xh[:, 0]
+    yh = (np.sin(2.0 * xh[:, 0]) + sd * rng.normal(size=n)).astype(np.float32)
+    nv = (sd**2).astype(np.float32)
+    (yht,) = to_dev(yh)
+    h.zero_counts()
+    hst, secs = timed(lambda: heteroscedastic.fit_hgp(xh, yht, n_rounds=HGP_ROUNDS, max_iter=HGP_ITERS))
+    c = h.read_counts()
+    k_h = {"k1_4096": h.wrappers["k1"].shapes[(1, n, 1, 1, 1)], "k2_4096": h.wrappers["k2"].shapes[(n,)]}
+    model = gp.HeteroscedasticGP(xh, yht)
+    model._state = hst
+    # the fitted noise std, as the JAX test reads it: the median of the
+    # per-point fitted variance exp(ẑ) near x = 0.5 and 3.5 (noise_at is the
+    # log-normal mean of the noise GP's predictive z, its white noise
+    # included: about exp(σₙ,z²/2) above)
+    nv_fit = hst.noise_train.cpu().numpy()
+    noise_sd = [float(np.sqrt(np.median(nv_fit[np.abs(xh[:, 0] - c) < 0.1]))) for c in (0.5, 3.5)]
+    noise_at = torch.sqrt(model.noise_at(np.array([[0.5], [3.5]], np.float32))).tolist()
+    truth_sd = [0.1, 0.4]
+    xg = np.linspace(0.05, 3.95, nq, dtype=np.float32)[:, None]
+    mh, _ = model.predict(xg)
+    rmse = _rmse(mh, np.sin(2.0 * xg[:, 0].astype(np.float64)))
+    xa = torch.as_tensor(gp.with_noise(xh, nv), device=dev)
+    kfix = gp.FixedNoise(gp.RBF())
+    gaps, checks = _gaps(h, "heteroscedastic", lambda u: nlml(kfix, u, xa, yht),
+                         lambda u: nlml(kfix, u, xa.double(), yht.double()), torch.ones(2, device=dev))
+    checks += [check("wrapper_models", f"heteroscedastic: noise std {noise_sd} not higher at x = 3.5",
+                     noise_sd[1] > noise_sd[0]),
+               check("wrapper_models", f"heteroscedastic: noise std {noise_sd} not within 2x of {truth_sd}",
+                     all(t / 2 < s < 2 * t for s, t in zip(noise_sd, truth_sd))),
+               check("wrapper_models", f"heteroscedastic: mean rmse {rmse} >= 0.1", rmse < 0.1),
+               check("wrapper_models", f"heteroscedastic: K1 and K2 at {n} not both launched {k_h}",
+                     min(k_h.values()) > 0)]
+    line("heteroscedastic", secs, HGP_ROUNDS, c, gaps, checks, n=n,
+         noise_std_at_0_5_and_3_5=noise_sd, sqrt_noise_at_0_5_and_3_5=noise_at,
+         true_noise_std=truth_sd, rmse=rmse, by_shape=k_h, max_iter=HGP_ITERS,
+         params_mean=hst.params_mean.tolist(), params_noise=hst.params_noise.tolist())
+    del hst, model
+
+    # -- DKL: make_data's x, a step target, MLP (32, 32, 2) ------------------
+    t = (x.sum(-1) - 3.0) / 1.5
+    yd = (np.where(t < 0, np.sin(2 * t), np.sign(np.sin(4 * t)))
+          + 0.05 * np.random.default_rng(6).normal(size=n)).astype(np.float32)
+    (ydt,) = to_dev(yd)
+    kern = gp.DeepKernel(cov, widths=(32, 32, 2), seed=0)
+    pd0 = kern.init_params(xt)
+    pd0[-1] = 0.1
+    h.zero_counts()
+    fit, secs = timed(lambda: gp.fit_dkl(kern, xt, ydt, params0=pd0, n_steps=DKL_STEPS))
+    c = h.read_counts()
+    k2_d = h.wrappers["k2"].shapes[(n,)]
+    nlml_dkl = nlml(kern, fit.params, xt, ydt).item()
+    plain = gp.fit_mle(cov, p0, xt, ydt, max_iter=TP_ITERS)
+    nlml_plain = nlml(cov, plain.params, xt, ydt).item()
+    gaps, checks = _gaps(h, "dkl", lambda u: nlml_fast(kern, u, xt, ydt),
+                         lambda u: nlml_fast(kern, u, x64, ydt.double()), pd0)
+    checks += [check("wrapper_models", f"dkl: trace did not fall {fit.nlml[0].item()} -> {fit.nlml[-1].item()}",
+                     fit.nlml[-1].item() < fit.nlml[0].item()),
+               check("wrapper_models", f"dkl: NLML {nlml_dkl} not below the plain RBF fit's {nlml_plain}",
+                     nlml_dkl < nlml_plain),
+               check("wrapper_models", f"dkl: K2 at {n} not launched every step, or K1 launched {c}",
+                     k2_d >= DKL_STEPS and c["k1"] == 0)]
+    line("dkl", secs, DKL_STEPS, c, gaps, checks, n=n, widths=[32, 32, 2], nlml_trace_first_last=[
+        fit.nlml[0].item(), fit.nlml[-1].item()], nlml_dkl=nlml_dkl, nlml_plain_rbf=nlml_plain,
+        k2_at_4096=k2_d, step_ms=1e3 * secs / DKL_STEPS)
+    del fit, plain
+
+    # -- GPLVM: n = 1024, p = 12, q = 2 --------------------------------------
+    rng = np.random.default_rng(8)
+    z = rng.normal(size=(GPLVM_N, 2))
+    w, b = rng.normal(size=(2, 12)), 0.3 * rng.normal(size=12)
+    yl = (np.tanh(z @ w + b) + 0.05 * rng.normal(size=(GPLVM_N, 12))).astype(np.float32)
+    (ylt,) = to_dev(yl)
+    x0 = gplvm.pca_init(yl.astype(np.float64), 2).astype(np.float32)
+    (x0t,) = to_dev(x0)
+
+    def objective(latents, yy):
+        nl = latents.shape[0] * 2
+        return lambda u: (gplvm.nlml_multi(cov, torch.exp(u[nl:]), u[:nl].reshape(-1, 2), yy)
+                          + 0.5 * torch.sum(torch.square(u[:nl])))
+
+    u_start = torch.cat([x0t.reshape(-1), torch.zeros(4, device=dev)])
+    h.zero_counts()
+    v0 = objective(x0t, ylt)(u_start).item()
+    res, secs = timed(lambda: gplvm.fit(cov, ylt, 2, x0=x0t, max_iter=GPLVM_ITERS))
+    rec, _ = gplvm.reconstruct(cov, res.params, res.latents, ylt)
+    c = h.read_counts()
+    k3_g = h.wrappers["k3"].shapes[(1, GPLVM_N)]
+    yc = yl.astype(np.float64) - yl.mean(0)
+    u_, s_, vt_ = np.linalg.svd(yc, full_matrices=False)
+    pca_rec = (u_[:, :2] * s_[:2]) @ vt_[:2] + yl.mean(0)
+    rmse, rmse_pca = _rmse(rec, yl), _rmse(pca_rec, yl)
+    u_gap = torch.cat([x0t.reshape(-1), torch.log(torch.tensor([1.0, 1.0, 1.0, 0.1], device=dev))])
+    gaps, checks = _gaps(h, "gplvm", objective(x0t, ylt), objective(x0t, ylt.double()), u_gap)
+    checks += [check("wrapper_models", f"gplvm: objective {res.value.item()} not below its PCA start {v0}",
+                     res.value.item() < v0),
+               check("wrapper_models", f"gplvm: reconstruction rmse {rmse} not below PCA's {rmse_pca}", rmse < rmse_pca),
+               check("wrapper_models", f"gplvm: K3 not launched at [{GPLVM_N}, {GPLVM_N}] {c}", k3_g > 0)]
+    line("gplvm", secs, int(res.iters), c, gaps, checks, n=GPLVM_N, p=12, q=2, objective=[v0, res.value.item()],
+         reconstruct_rmse=rmse, pca_rmse=rmse_pca, k3_at_1024=k3_g)
+    del res
+
+    # -- the derivative GP: 256 points with values and gradients, d = 3 ------
+    rng = np.random.default_rng(9)
+    xd = rng.uniform(0.0, 2.0, (DERIV_N, 3))
+    s = xd.sum(-1)
+    yv = np.sin(2 * s) + 0.01 * rng.normal(size=DERIV_N)
+    gv = np.repeat(2 * np.cos(2 * s)[:, None], 3, axis=1) + 0.01 * rng.normal(size=(DERIV_N, 3))
+    xdt, yvt, gvt = to_dev(*(a.astype(np.float32) for a in (xd, yv, gv)))
+    rbf = gp.RBF()
+    pr0 = torch.ones(4, device=dev)
+    h.zero_counts()
+    v0 = derivative.nlml(rbf, pr0, xdt, yvt, xdt, gvt).item()
+    (res, sf, sg), secs = timed(lambda: derivative.fit(rbf, pr0, xdt, yvt, xdt, gvt, max_iter=DERIV_ITERS))
+    state = derivative.factorize(rbf, res.params, xdt, yvt, xdt, gvt, sigma_f=sf, sigma_g=sg)
+    (mean, var, gmean), pred_s = timed(lambda: derivative.predict(rbf, res.params, state, xdt, xdt, xq_t,
+                                                                  grad_out=True))
+    c = h.read_counts()
+    k3_d = h.wrappers["k3"].shapes[(1, DERIV_N * 4)]
+    g_q = np.repeat(2 * np.cos(2 * xq.astype(np.float64).sum(-1))[:, None], 3, axis=1)
+    vo = gp.fit_mle(cov, p0, xdt, yvt, max_iter=DERIV_ITERS)
+    st_vo = exact_gp.factorize(cov, vo.params, xdt, yvt)
+    xq_req = xq_t.clone().requires_grad_(True)
+    with torch.enable_grad():
+        m_vo, _ = exact_gp.predict(cov, st_vo, xq_req, "none")
+        (g_vo,) = torch.autograd.grad(m_vo.sum(), xq_req)
+    rmse_v, rmse_g = _rmse(mean, f_q), _rmse(gmean, g_q)
+    rmse_v0, rmse_g0 = _rmse(m_vo, f_q), _rmse(g_vo, g_q)
+    K32 = derivative.joint_gram(rbf, pr0, xdt, xdt)
+    K64 = derivative.joint_gram(rbf, pr0.double(), xdt.double(), xdt.double())
+    gram_gap = _rel(K32, K64)
+    gram_lim = 10.0 * DERIV_GRAM_GAP_FROM_JAX
+    xd64, yv64, gv64 = xdt.double(), yvt.double(), gvt.double()
+    gaps, checks = _gaps(h, "derivative", lambda u: derivative.nlml(rbf, u, xdt, yvt, xdt, gvt),
+                         lambda u: derivative.nlml(rbf, u, xd64, yv64, xd64, gv64), pr0)
+    gaps.update(joint_gram=gram_gap, joint_gram_limit=gram_lim, joint_gram_jax_cpu=DERIV_GRAM_GAP_FROM_JAX)
+    checks += [check("wrapper_models", f"derivative: NLML did not fall {v0} -> {res.value.item()}", res.value.item() < v0),
+               check("wrapper_models", f"derivative: value rmse {rmse_v} not below the value-only GP's {rmse_v0}",
+                     rmse_v < rmse_v0),
+               check("wrapper_models", f"derivative: gradient rmse {rmse_g} not below the value-only GP's {rmse_g0}",
+                     rmse_g < rmse_g0),
+               check("wrapper_models", f"derivative: joint gram f32 {gram_gap} from f64 > {gram_lim}",
+                     gram_gap <= gram_lim),
+               check("wrapper_models", f"derivative: K3 not launched at [{4 * DERIV_N}, {4 * DERIV_N}] {c}", k3_d > 0)]
+    line("derivative", secs, int(res.iters), c, gaps, checks, n=DERIV_N, joint=4 * DERIV_N, nlml=[v0, res.value.item()],
+         sigma_f=sf, sigma_g=sg, rmse_value=rmse_v, rmse_grad=rmse_g, rmse_value_only_gp=[rmse_v0, rmse_g0],
+         predict_s=pred_s, predict_queries=nq, k3_at_1024=k3_d)
+    torch.cuda.empty_cache()
+
+
+#: the utilities phase's cuts: the resumable fit's 60 iterations in
+#: segments of 20 (the JAX defaults 1000 and 100); the streamed SVGP's
+#: 3 epochs of 512 (576 steps), timed a step beside 100 in-memory steps on
+#: the same data; BayesOpt's proposals take 20 Adam steps (the JAX default 80:
+#: at 80, 30 ask/tell rounds took 55.0 s on an H100)
+RESUME_ITERS, RESUME_SEGMENT, STREAM_EPOCHS, STREAM_BATCH, MEM_STEPS = 60, 20, 3, 512, 100
+BO_PROPOSE = dict(n_steps=20)
+#: BayesOpt's white-noise start (``Config.noise_init``; the reference's 1e-4
+#: by default): from 1e-4 the f32 refits at 10–40 points climb the ladder's
+#: rungs at most evaluations (16975 K3 launches in 30 rounds on an H100, the
+#: unit 47–55 s)
+BO_NOISE_INIT = 0.1
+#: BayesOpt on Hartmann-6 (Dixon & Szegő 1978) on [0, 1]⁶, minimum −3.32237
+H6_ALPHA = (1.0, 1.2, 3.0, 3.2)
+H6_A = ((10, 3, 17, 3.5, 1.7, 8), (0.05, 10, 17, 0.1, 8, 14), (3, 3.5, 1.7, 10, 17, 8), (17, 8, 0.05, 10, 0.1, 14))
+H6_P = ((1312, 1696, 5569, 124, 8283, 5886), (2329, 4135, 8307, 3736, 1004, 9991),
+        (2348, 1451, 3522, 2883, 3047, 6650), (4047, 8828, 8732, 5743, 1091, 381))
+BO_INIT, BO_TOTAL, BO_SEED = 10, 40, 0
+BO_ACQ = "log_ei"
+#: why the Hartmann-6 best is held against the loop's own initial design,
+#: and the best of 50 uniform draws from the same seed is printed and not
+#: held: at this budget the loop does not beat random search reliably, in
+#: the port or in the JAX package.  On a CPU in f64 at these settings, seeds
+#: 0–7 (`tests/test_torch_bayesopt.py`'s problem), the loop's best against
+#: the best of 50: the port −1.256/−1.035, −2.621/−2.746, −2.251/−2.251,
+#: −2.519/−1.391, −2.348/−2.020, −1.474/−2.625, −1.183/−1.512,
+#: −1.199/−1.850 (3 of 8 below); the JAX package −2.240, −1.475, −2.251,
+#: −1.939, −1.762, −1.388, −1.254, −2.271 against the same (3 of 8 below).
+#: The claim against random search is held on the JAX test's own problem,
+#: Branin (BRANIN_*)
+BO_RANDOM_NOTE = "printed, not held: at 40 evaluations neither package beats 50 uniform draws in most seeds"
+#: the port's own run of this problem on a CPU in f64 (`JAX_PLATFORMS=cpu
+#: PYTHONPATH=. python tests/test_torch_bayesopt.py`), printed beside the card's
+BO_CPU_F64_BEST = -1.2557872549324336
+#: the JAX package's BayesOpt test against random search
+#: (tests/test_bayesopt.py::test_bayesopt_loop_minimizes_branin), at its
+#: settings: Branin on [−5, 10] × [0, 15], 8 initial points from
+#: default_rng(0), 25 ask/tell rounds, refit every 5, proposals of 256 raw
+#: candidates, 4 starts, 40 Adam steps; held: the best within 0.5 of the
+#: minimum 0.397887 and below the best of 33 uniform draws from
+#: default_rng(7) (3.2901).  33 uniform draws come within 0.5 in 27 % of
+#: 10⁵ trials; the port in f64 on a CPU, seeds 0–7, read 0.3987, 0.3980,
+#: 0.4037, 0.3986, 0.3985, 0.3986, 0.3988, 0.3982
+BRANIN_MIN, BRANIN_MARGIN, BRANIN_INIT, BRANIN_ROUNDS, BRANIN_RANDOM = 0.397887, 0.5, 8, 25, 33
+BRANIN_PROPOSE = dict(n_raw=256, n_starts=4, n_steps=40)
+#: the resumable fit's and the streamed SVGP's sizes (a rehearsal on the CPU
+#: sets them small)
+RESUME_N, STREAM_N = 4096, 98304
+
+
+
+def branin(x):
+    """Branin on [−5, 10] × [0, 15]; minimum 0.397887."""
+    import numpy as np
+
+    x = np.asarray(x, np.float64)
+    b, c, t = 5.1 / (4 * np.pi**2), 5 / np.pi, 1 / (8 * np.pi)
+    return (x[..., 1] - b * x[..., 0] ** 2 + c * x[..., 0] - 6.0) ** 2 + 10.0 * (1 - t) * np.cos(x[..., 0]) + 10.0
+
+
+def hartmann6(x):
+    import numpy as np
+
+    x = np.atleast_2d(np.asarray(x, np.float64))
+    a, p = np.asarray(H6_A), 1e-4 * np.asarray(H6_P)
+    return -np.sum(np.asarray(H6_ALPHA) * np.exp(-np.sum(a * (x[:, None, :] - p) ** 2, axis=-1)), axis=-1)
+
+
+def utilities_phase(h):
+    """The utilities and the optimizers on top of them, one JSON line each:
+    the resumable fit at the flagship's n = 4096, the memory-mapped dataset
+    under SVGP's streamed fit (the non_gaussian phase's problem), the state
+    diagnostics on the 16 × 512 committee, a profile of one flagship
+    evaluation, and Bayesian optimization of Hartmann-6 and of Branin."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import pygpr_torch as gp
+    from pygpr_torch import bench
+    from pygpr_torch.models import svgp
+    from pygpr_torch.optimize import bayesopt
+    from pygpr_torch.optimize.resumable import fit_mle_resumable
+    from pygpr_torch.utils import check_state, checkify_nlml, expert_mask, summarize
+    from pygpr_torch.utils.dataset import BinaryDataset
+    from pygpr_torch.utils.profiling import annotate, trace
+
+    check, dev, to_dev, timed = h.check, h.dev, h.to_dev, h.timed
+    cov = gp.Sum((gp.RBF(), gp.WhiteNoise()))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+
+    def line(unit, checks, **rec):
+        emit({"phase": "utilities", "unit": unit, "card": h.smi, **rec, "ok": all(checks)})
+
+    # -- the resumable fit: the flagship at n = 4096 -------------------------
+    x, y, p = make_data(RESUME_N)
+    xt, yt, pt = to_dev(x, y, p)
+    path = os.path.join(tmp, "fit.npz")
+    v0 = gp.nlml(cov, pt, xt, yt).item()
+    h.zero_counts()
+    first, s1 = timed(lambda: fit_mle_resumable(cov, pt, xt, yt, path, max_iter=RESUME_SEGMENT,
+                                                segment_iters=RESUME_SEGMENT))
+    with np.load(path) as z:
+        keys = sorted(z.files)
+        start = json.loads(bytes(z["__meta__"]).decode())["iters"]
+    res, s2 = timed(lambda: fit_mle_resumable(cov, pt, xt, yt, path, max_iter=RESUME_ITERS,
+                                              segment_iters=RESUME_SEGMENT))
+    c = h.read_counts()
+    with np.load(path) as z:
+        end = json.loads(bytes(z["__meta__"]).decode())["iters"]
+        stored = z["leaf_0"]
+    checks = [check("utilities", f"resumable: second call started at {start}, not 20", start == RESUME_SEGMENT),
+              check("utilities", f"resumable: ended at {int(res.iters)} > {RESUME_ITERS}",
+                    RESUME_SEGMENT < int(res.iters) <= RESUME_ITERS and end == int(res.iters)),
+              check("utilities", f"resumable: NLML did not fall {v0} -> {res.value.item()}", res.value.item() < v0),
+              check("utilities", f"resumable: file keys {keys} not the JAX layout",
+                    keys == ["__meta__", "__treedef__", "leaf_0"] and stored.shape == (5,)),
+              check("utilities", f"resumable: K1 and K2 not launched {c}", min(c["k1"], c["k2"]) > 0)]
+    line("resumable_fit", checks, n=RESUME_N, seconds=[s1, s2], iters=[int(first.iters), int(res.iters)],
+         resumed_from=start, nlml=[v0, first.value.item(), res.value.item()], launches=c)
+
+    # -- the dataset: the SGPR bench's inputs, labels the sign, streamed -----
+    xb, yb, xs, ys_true, _ = bench.sgpr_large_n_data(STREAM_N)
+    lab = (yb > 0).astype(np.float32)
+    ds = BinaryDataset.write(os.path.join(tmp, "svgp.bin"), xb, lab)
+    (xbt, labt, xst) = to_dev(xb, lab, xs)
+    z0 = svgp.init_inducing(xbt, SVGP_M, 0)
+    steps = STREAM_EPOCHS * (ds.n // STREAM_BATCH)
+    h.zero_counts()
+    fit, secs = timed(lambda: svgp.fit_streamed(gp.RBF(), gp.BernoulliLogit(), ds, z0, batch_size=STREAM_BATCH,
+                                                epochs=STREAM_EPOCHS, device=dev))
+    c = h.read_counts()
+    k3_m = h.wrappers["k3"].shapes[(1, SVGP_M)]
+    with torch.no_grad():
+        prob, _ = svgp.predict(gp.RBF(), gp.BernoulliLogit(), fit.params, xst)
+    acc = ((prob > 0.5).float() == torch.as_tensor(ys_true > 0, device=dev).float()).float().mean().item()
+    mem, mem_s = timed(lambda: svgp.fit(gp.RBF(), gp.BernoulliLogit(), xbt, labt, z0, batch_size=STREAM_BATCH,
+                                        n_steps=MEM_STEPS))
+    losses = fit.losses
+    checks = [check("utilities", f"dataset: {losses.shape[0]} steps, not {steps}", losses.shape[0] == steps),
+              check("utilities", f"dataset: loss did not fall {losses[0].item()} -> {losses[-1].item()}",
+                    losses[-50:].mean().item() < losses[:50].mean().item()),
+              check("utilities", f"dataset: held-out accuracy {acc} <= {SVGP_ACCURACY}", acc > SVGP_ACCURACY),
+              check("utilities", f"dataset: K3 on [{SVGP_M}, {SVGP_M}] not launched {c}", k3_m > 0)]
+    line("dataset_streamed_svgp", checks, n=ds.n, m=SVGP_M, batch=STREAM_BATCH, epochs=STREAM_EPOCHS, steps=steps,
+         seconds=secs, step_ms=1e3 * secs / steps, in_memory_step_ms=1e3 * mem_s / MEM_STEPS, loss_first_last=[losses[0].item(), losses[-1].item()],
+         heldout_accuracy=acc, launches=c, k3_at_1024=k3_m)
+    del ds, fit, mem, xbt, labt
+
+    # -- diagnostics: the 16 × 512 committee's state ---------------------------
+    st = h.committee_state
+    health = check_state(st)
+    summary = summarize(st)
+    mask = expert_mask(st)
+    f = checkify_nlml(cov, xt, yt)
+    finite = math.isfinite(f(pt).item())
+    try:
+        f(torch.tensor([float("nan"), 1.0, 1.0, 1.0, 0.1], device=dev))
+        raised = False
+    except ValueError:
+        raised = True
+    checks = [check("utilities", f"diagnostics: summary {summary}",
+                    summary["n_experts"] == 16 and summary["n_failed"] == 0),
+              check("utilities", "diagnostics: a healthy expert masked out", bool(mask.all()) and mask.shape == (16,)),
+              check("utilities", "diagnostics: checkify_nlml did not raise on a NaN parameter", raised and finite)]
+    line("diagnostics", checks, summary=summary, escalated=health.escalated.tolist(), checked_nlml_raised=raised)
+
+    # -- profiling: one flagship evaluation under annotate("nlml") -------------
+    trace_dir = os.path.join(tmp, "trace")
+    evaluate = annotate("nlml")(lambda: gp.nlml_value_and_grad(cov, pt, xt, yt))
+    evaluate()
+    h.zero_counts()
+    with trace(trace_dir):
+        _, secs = timed(evaluate)
+    c = h.read_counts()
+    with open(os.path.join(trace_dir, "trace.json")) as fh:
+        names = {e.get("name", "") for e in json.load(fh).get("traceEvents", [])}
+    k1_named = any("rbf_noise_gram" in nm for nm in names)
+    k2_named = any("chol_inverse" in nm for nm in names)
+    # K1's name is printed, not held: in the whole script's runs the trace
+    # lacked it though its wrapper counted the launch (the phases alone on
+    # an H100 named it, and a process with eager module loading drops it
+    # after its first profile), an open fault of the port (ROADMAP C8)
+    checks = [check("utilities", "profiling: the trace names no nlml range", "nlml" in names),
+              check("utilities", f"profiling: the trace names no K2 kernel {sorted(names)[:8]}", k2_named),
+              check("utilities", f"profiling: K1 and K2 not launched in the traced evaluation {c}",
+                    min(c["k1"], c["k2"]) > 0)]
+    line("profiling", checks, n=RESUME_N, traced_evaluation_s=secs, distinct_names=len(names), names_k1=k1_named,
+         names_k2=k2_named, nlml_range="nlml" in names, launches=c)
+
+    # -- Bayesian optimization: Hartmann-6 -------------------------------------
+    rng = np.random.default_rng(BO_SEED)
+    x0 = rng.uniform(size=(BO_INIT, 6)).astype(np.float32)
+    random_best = float(hartmann6(np.random.default_rng(BO_SEED).uniform(size=(50, 6))).min())
+    lo, hi = np.zeros(6, np.float32), np.ones(6, np.float32)
+    h.zero_counts()
+
+    def run():
+        opt = gp.BayesOpt(cov, x0, hartmann6(x0).astype(np.float32), (lo, hi), acq=BO_ACQ, refit_every=5,
+                          seed=BO_SEED, propose_kwargs=BO_PROPOSE, config=gp.Config(noise_init=BO_NOISE_INIT),
+                          device=dev)
+        while opt.x.shape[0] < BO_TOTAL:
+            xn = opt.ask()
+            opt.tell(xn, hartmann6(xn.detach().double().cpu().numpy()).astype(np.float32))
+        return opt
+
+    opt, secs = timed(run)
+    batch, batch_s = timed(lambda: opt.ask(q=4))
+    ts = bayesopt.propose_batch(opt.kern, opt.state, opt.bounds, opt.generator, 4, acq="thompson")
+    c = h.read_counts()
+    best = float(opt.best[1])
+
+    def spread(b):
+        return bool(((b >= 0) & (b <= 1)).all()) and torch.cdist(b, b)[~torch.eye(4, dtype=torch.bool,
+                                                                                   device=b.device)].min().item() > 0
+    init_best = float(hartmann6(x0).astype(np.float32).min())
+    checks = [check("utilities", f"bayesopt: best {best} not finite and below its initial design's {init_best}",
+                    math.isfinite(best) and best < init_best),
+              check("utilities", "bayesopt: a q = 4 batch out of the box or with a repeated point", spread(batch)),
+              # the q Thompson draws take the minimizer of q posterior
+              # samples on one shared set of candidates: where the posterior
+              # is sure of its best candidate, the draws pick the same one
+              # (the JAX test holds shape and box only)
+              check("utilities", "bayesopt: a Thompson batch out of the box",
+                    ts.shape == (4, 6) and bool(((ts >= 0) & (ts <= 1)).all()))]
+    line("bayesopt", checks, problem="hartmann6", minimum=-3.32237, n_init=BO_INIT, evaluations=BO_TOTAL,
+         noise_init=BO_NOISE_INIT, adam_steps=BO_PROPOSE["n_steps"],
+         acq=BO_ACQ, kernel="Sum(RBF, WhiteNoise)", best=best, initial_design_best=init_best, random_best_of_50=random_best,
+         beats_random_best_of_50=best < random_best, random_note=BO_RANDOM_NOTE, seconds=secs,
+         thompson_distinct=int(torch.unique(ts, dim=0).shape[0]),
+         ask_tell_ms=1e3 * secs / (BO_TOTAL - BO_INIT), batch_q4_s=batch_s, port_cpu_f64_best=BO_CPU_F64_BEST,
+         launches=c)
+
+    # -- Bayesian optimization: Branin, the JAX test's claim against random ----
+    blo, bhi = np.array([-5.0, 0.0], np.float32), np.array([10.0, 15.0], np.float32)
+    bx0 = (blo + (bhi - blo) * np.random.default_rng(0).uniform(size=(BRANIN_INIT, 2))).astype(np.float32)
+    rand_best = float(branin(blo + (bhi - blo) * np.random.default_rng(7).uniform(size=(BRANIN_RANDOM, 2))).min())
+    h.zero_counts()
+
+    def run_branin():
+        opt = gp.BayesOpt(cov, bx0, branin(bx0).astype(np.float32), (blo, bhi), refit_every=5, seed=0,
+                          propose_kwargs=BRANIN_PROPOSE, device=dev)
+        for _ in range(BRANIN_ROUNDS):
+            xn = opt.ask()
+            opt.tell(xn, np.asarray([branin(xn.detach().double().cpu().numpy())], np.float32))
+        return opt
+
+    opt, secs = timed(run_branin)
+    c = h.read_counts()
+    best = float(opt.best[1])
+    checks = [check("utilities", f"bayesopt_branin: best {best} not within {BRANIN_MARGIN} of {BRANIN_MIN}",
+                    best < BRANIN_MIN + BRANIN_MARGIN),
+              check("utilities", f"bayesopt_branin: best {best} not below {BRANIN_RANDOM} uniform draws' {rand_best}",
+                    best < rand_best),
+              check("utilities", f"bayesopt_branin: K3 not launched {c}", c["k3"] > 0)]
+    line("bayesopt_branin", checks, problem="branin", minimum=BRANIN_MIN, n_init=BRANIN_INIT, rounds=BRANIN_ROUNDS,
+         propose=BRANIN_PROPOSE, best=best, random_best=rand_best, random_draws=BRANIN_RANDOM, seconds=secs,
+         ask_tell_ms=1e3 * secs / BRANIN_ROUNDS, launches=c)
+    shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
 
 
@@ -1995,6 +2607,7 @@ def main() -> int:
           "precompute_tinv_s": tinv_s, "predict_s": predict_s, "predict_s_warm": predict_reps,
           "predictions_per_s": 4096 / predict_s, "rmse": rmse, "nlpd": nlpd, "ok": ok,
           "launches_fit": c_fit, "launches_factorize": c_fac})
+    committee_state = model.gpl.state  # for the utilities phase's diagnostics
     del model, mean, var
 
     # 7b. BASELINE config 4 (pygpr_tpu/bench/__init__.py::bench_large_n):
@@ -2388,7 +3001,8 @@ def main() -> int:
     # -- 10b. the reference's own API and the kernel families -----------------
     t0 = time.perf_counter()
     helpers = types.SimpleNamespace(dev=dev, smi=smi, check=check, zero_counts=zero_counts, read_counts=read_counts,
-                                    wrappers=wrappers, to_dev=to_dev, timed=timed, warm=warm, device_ms=device_ms)
+                                    wrappers=wrappers, to_dev=to_dev, timed=timed, warm=warm, device_ms=device_ms,
+                                    committee_state=committee_state)
     api_phases(helpers)
     emit({"phase": "api_phases", "seconds": time.perf_counter() - t0})
 
@@ -2405,6 +3019,15 @@ def main() -> int:
         t0 = time.perf_counter()
         phase(helpers)
         emit({"phase": phase.__name__, "seconds": time.perf_counter() - t0, "card": smi})
+
+    # -- 10e. the wrapper models (TP, warped, multi-fidelity, heteroscedastic,
+    # DKL, GPLVM, derivative GP) and the utilities and optimizers on top of
+    # them (resumable fit, dataset, diagnostics, profiling, BayesOpt) ---------
+    for phase in (wrapper_models_phase, utilities_phase):
+        t0 = time.perf_counter()
+        phase(helpers)
+        emit({"phase": phase.__name__, "seconds": time.perf_counter() - t0, "card": smi})
+    del committee_state, helpers.committee_state
 
     # -- 11. the main path's kernel time by shape -----------------------------
     # every shape each kernel was launched at on the main path, timed on

@@ -21,7 +21,14 @@ variational models (observation likelihoods, ``LaplaceGP``, ``EPGP``,
 ``SVGP``, random Fourier features, ``DeepGP``); the structured exact models
 (``KroneckerGP`` on a grid, the state-space ``StateSpaceGP`` for 1-D
 Matérn time series with its parallel scans and adjoint gradient, and SKI,
-``SKIGP``, with its direct Woodbury and Krylov paths); and the benchmark entry points
+``SKIGP``, with its direct Woodbury and Krylov paths); the wrapper models
+(deep kernel learning, ``DeepKernel`` and ``fit_dkl``; ``WarpedGP``; the
+Student-t process ``TProcess``; ``HeteroscedasticGP``; multi-fidelity
+co-kriging, ``MultiFidelityGP``; the gradient-enhanced ``DerivativeGP``;
+``GPLVM``), the utilities (checkpoints, the memory-mapped
+``utils.dataset.BinaryDataset``, state diagnostics, profiling) and the
+optimizers on top of them (``fit_mle_resumable``, Bayesian optimization,
+``BayesOpt``); and the benchmark entry points
 (``pygpr_torch.bench``, with its stage probe
 ``pygpr_torch.bench.mfu_probe``).  On an NVIDIA H100 the train gram of
 ``Sum((RBF(), WhiteNoise()))``, the fused Cholesky plus triangular
@@ -90,11 +97,13 @@ from pygpr_torch.models import (
     deepgp,
     ep,
     grbcm,
+    heteroscedastic,
     iterative,
     kronecker,
     laplace,
     means,
     metrics,
+    multifidelity,
     obs,
     priors,
     rff,
@@ -102,7 +111,16 @@ from pygpr_torch.models import (
     ski,
     statespace,
     svgp,
+    tprocess,
+    warped,
 )
+from pygpr_torch.models.dkl import DeepKernel, fit_dkl
+from pygpr_torch.models.warped import WarpedGP
+from pygpr_torch.models.tprocess import TProcess
+from pygpr_torch.models.multifidelity import MultiFidelityGP
+from pygpr_torch.models.heteroscedastic import HeteroscedasticGP
+from pygpr_torch.models.derivative import DerivativeGP
+from pygpr_torch.models.gplvm import GPLVM
 from pygpr_torch.ops.coregion import ICM, TaskNoise, stack_outputs, with_task
 from pygpr_torch.ops.fixed_noise import FixedNoise, with_noise
 from pygpr_torch.models.means import ConstantMean, LinearMean, Mean, ZeroMean, fit_gp_mean
@@ -123,6 +141,7 @@ from pygpr_torch.models.metrics import loo_cv, loo_nlpd
 from pygpr_torch.models.committee import aggregate_committee, fit_committee, predict_committee
 from pygpr_torch.optimize import (
     CG,
+    BayesOpt,
     BFGSQuad,
     CGQuad,
     FitResult,

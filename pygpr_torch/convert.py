@@ -4,7 +4,10 @@ A posterior state (one GP or a committee's batched state), a grBCM
 ``FitInfo``, an ``IterativeGP``, an ``SGPRState``, an observation
 likelihood, SVGP's ``SVGPParams``, the deep GP's ``DGPParams``, an
 ``RFFBasis``, a ``LaplaceState``, an ``EPState``, a SKI ``Grid`` or
-``SKIStats``, a ``KronState`` or a parameter vector of ``pygpr_tpu``
+``SKIStats``, a ``KronState``, the wrapper models' states (``FitTPResult``,
+``FitWarpedResult`` and its warp, ``MFState``, ``HGPState``, ``DKLFit``
+and its ``DeepKernel``, ``GPLVMResult``, ``DerivGPState``) or a parameter
+vector of ``pygpr_tpu``
 becomes the port's own through ``np.asarray`` of each field; nothing here
 imports the JAX package.  The packed parameter order is the same in both, e.g.
 ``[σ, ℓ₁..ℓ_d, σₙ]`` for ``Sum((RBF(), WhiteNoise()))``, so the kernel
@@ -24,7 +27,14 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from pygpr_torch.models import means, obs
+from pygpr_torch.models import means, obs, warped
+from pygpr_torch.models.derivative import DerivGPState
+from pygpr_torch.models.dkl import DeepKernel, DKLFit
+from pygpr_torch.models.gplvm import GPLVMResult
+from pygpr_torch.models.heteroscedastic import HGPState
+from pygpr_torch.models.multifidelity import MFState
+from pygpr_torch.models.tprocess import FitTPResult
+from pygpr_torch.models.warped import FitWarpedResult
 from pygpr_torch.models.deepgp import DGPParams, LayerParams
 from pygpr_torch.models.ep import EPState
 from pygpr_torch.models.laplace import LaplaceState
@@ -46,15 +56,15 @@ _SPEC_KERNELS = {
     for cls in (kernels.RBF, kernels.WhiteNoise, kernels.Sum, kernels.Product, kernels.Matern, kernels.ArcCosine,
                 kernels.RationalQuadratic, kernels.Periodic, kernels.Constant, kernels.SpectralMixture,
                 kernels.Linear, kernels.Separable, kernels.ActiveDims, kernels.ChangePoint, coregion.ICM,
-                coregion.TaskNoise, fixed_noise.FixedNoise)
+                coregion.TaskNoise, fixed_noise.FixedNoise, DeepKernel)
 }
 #: the arguments each kernel class takes besides its children
 _SPEC_ARGS = {"Matern": ("nu",), "ArcCosine": ("order",), "SpectralMixture": ("q",), "Separable": ("profile",),
               "ActiveDims": ("dims",), "ChangePoint": ("axis",), "ICM": ("n_outputs", "rank"),
-              "TaskNoise": ("n_outputs",)}
+              "TaskNoise": ("n_outputs",), "DeepKernel": ("widths", "seed")}
 #: where each kernel class keeps its children, in its constructor's order
 _SPEC_CHILDREN = {"Sum": "kernels", "Product": "kernels", "ActiveDims": ("base",), "FixedNoise": ("base",),
-                  "ICM": ("base",), "ChangePoint": ("k1", "k2")}
+                  "ICM": ("base",), "ChangePoint": ("k1", "k2"), "DeepKernel": ("base",)}
 #: the kernel classes that take no arguments, for :func:`kernel_from_names`
 _KERNELS = {n: cls for n, cls in _SPEC_KERNELS.items() if n not in _SPEC_ARGS and n not in _SPEC_CHILDREN}
 _MEANS = {cls.__name__: cls for cls in (means.ZeroMean, means.ConstantMean, means.LinearMean)}
@@ -240,3 +250,72 @@ def kron_state_from_numpy(arrays: Mapping[str, object], device) -> KronState:
     return KronState(axes=tuple(put(a) for a in arrays["axes"]), params=put(arrays["params"]),
                      eigvecs=tuple(put(q) for q in arrays["eigvecs"]), denom=put(arrays["denom"]),
                      alpha=put(arrays["alpha"]), nlml=put(arrays["nlml"]), ok=put(arrays["ok"]))
+
+
+def _nested_from_numpy(cls, arrays: Mapping[str, object], device, what: str, states=()):
+    """``cls`` from NumPy copies of the JAX fields; the fields named in
+    ``states`` are nested ``GPState`` mappings, a float field stays a
+    float."""
+    missing = [f for f in cls._fields if f not in arrays]
+    if missing:
+        raise ValueError(f"{what}: missing fields {missing}")
+
+    def put(f):
+        a = arrays[f]
+        if f in states:
+            return state_from_numpy(a, device)
+        return a if isinstance(a, float) else torch.tensor(np.asarray(a), device=device)
+
+    return cls(**{f: put(f) for f in cls._fields})
+
+
+def tp_result_from_numpy(arrays: Mapping[str, object], device) -> FitTPResult:
+    """The Student-t process's ``FitTPResult`` (``state`` a mapping of
+    ``GPState`` fields; params, nu, nlml, converged)."""
+    return _nested_from_numpy(FitTPResult, arrays, device, "tp_result_from_numpy", ("state",))
+
+
+def warp_from_name(name: str, **args):
+    """The port's warp for the JAX class's name and its constructor's
+    arguments (``n_terms`` of ``TanhWarp``), e.g.
+    ``warp_from_name(type(w).__name__, **vars(w))``."""
+    kinds = {c.__name__: c for c in (warped.TanhWarp, warped.LogWarp, warped.IdentityWarp)}
+    if name not in kinds:
+        raise ValueError(f"no port of warp {name!r}; the port has {sorted(kinds)}")
+    return kinds[name](**args)
+
+
+def warped_result_from_numpy(arrays: Mapping[str, object], device) -> FitWarpedResult:
+    """The warped GP's ``FitWarpedResult`` (``state`` a mapping of
+    ``GPState`` fields; params, warp_params, nlml, converged)."""
+    return _nested_from_numpy(FitWarpedResult, arrays, device, "warped_result_from_numpy", ("state",))
+
+
+def mf_state_from_numpy(arrays: Mapping[str, object], device) -> MFState:
+    """The multi-fidelity ``MFState`` (``state_lo`` and ``state_d``
+    mappings of ``GPState`` fields; rho, params_lo, params_d, nlml_lo,
+    nlml_d)."""
+    return _nested_from_numpy(MFState, arrays, device, "mf_state_from_numpy", ("state_lo", "state_d"))
+
+
+def hgp_state_from_numpy(arrays: Mapping[str, object], device) -> HGPState:
+    """The heteroscedastic GP's ``HGPState`` (``state_mean`` and
+    ``state_noise`` mappings of ``GPState`` fields; ``z_mean`` a float)."""
+    out = _nested_from_numpy(HGPState, arrays, device, "hgp_state_from_numpy", ("state_mean", "state_noise"))
+    return out._replace(z_mean=float(out.z_mean))
+
+
+def dkl_fit_from_numpy(arrays: Mapping[str, np.ndarray], device) -> DKLFit:
+    """DKL's ``DKLFit`` (params, nlml, converged); the ``DeepKernel``
+    itself comes across by :func:`kernel_spec` and :func:`kernel_from_spec`."""
+    return _fields_from_numpy(DKLFit, arrays, device, "dkl_fit_from_numpy")
+
+
+def gplvm_result_from_numpy(arrays: Mapping[str, np.ndarray], device) -> GPLVMResult:
+    """The GPLVM's ``GPLVMResult`` (latents, params, value, grad_norm, iters)."""
+    return _fields_from_numpy(GPLVMResult, arrays, device, "gplvm_result_from_numpy")
+
+
+def deriv_state_from_numpy(arrays: Mapping[str, np.ndarray], device) -> DerivGPState:
+    """The derivative GP's ``DerivGPState`` (chol, weights, jitter, ok)."""
+    return _fields_from_numpy(DerivGPState, arrays, device, "deriv_state_from_numpy")

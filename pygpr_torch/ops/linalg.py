@@ -8,9 +8,15 @@ all-NaN factor, as XLA's Cholesky gives.
 
 Each rung factors f32 input of the shapes the JAX package sends to its
 Pallas Cholesky kernels with kernel K3 (``ops.chol_batched``; its plain
-version on the CPU), and everything else with ``torch.linalg.cholesky_ex``,
-which reports a failure in ``info`` where ``torch.linalg.cholesky`` would
-raise.
+version on the CPU), a single f32 ``[n, n]`` above 1024 of K2's shapes
+with K2 (``ops.chol_inverse``, keeping L), and everything else with
+``torch.linalg.cholesky_ex``, which reports a failure in ``info`` where
+``torch.linalg.cholesky`` would raise.
+
+The K2 route departs from the JAX package, which sends a single f32 gram
+above 1024 to XLA's Cholesky.  On the card that call is cuSOLVER's, whose
+f32 factor of a 4096 gram leaves a backward error ‖LLᵀ − K‖/‖K‖ about 14×
+K2's, and fails every rung of some near-singular grams that K2 factors.
 """
 
 from __future__ import annotations
@@ -60,9 +66,17 @@ def batched_kernel_takes(K: Tensor) -> bool:
     return K.ndim > 2 and nb >= 2 and n % 128 == 0
 
 
+def fused_kernel_takes(K: Tensor) -> bool:
+    """Second routing rule of the ladder, the port's own: a single f32
+    ``[n, n]`` with n > 1024, n % 128 == 0 goes to K2, which the first rule
+    leaves to the library."""
+    return K.dtype == torch.float32 and K.shape[-1] > 1024 and chol_inverse.takes(K)
+
+
 def _ladder(K: Tensor, config: Config):
     rungs = config.jitter_rungs
     kernel = batched_kernel_takes(K)
+    fused = fused_kernel_takes(K)
 
     def attempt(k):
         jit = config.jitter * torch.pow(10.0, k)
@@ -72,6 +86,9 @@ def _ladder(K: Tensor, config: Config):
             A = A if A.ndim <= 3 else A.reshape((-1, n, n))
             L = chol_batched.cholesky_batched(A.contiguous()).reshape(K.shape)
             ok = torch.isfinite(L).all(dim=-1).all(dim=-1)
+        elif fused:
+            L = chol_inverse.cholesky_inverse(A.contiguous())[0]
+            ok = torch.isfinite(L).all()
         else:
             L, info = torch.linalg.cholesky_ex(A)
             ok = (info == 0) & torch.isfinite(L).all(dim=-1).all(dim=-1)

@@ -584,3 +584,82 @@ def test_statespace_scan_f32_at_a_million_points(dev):
     assert torch.isfinite(v32) and torch.isfinite(g32).all()
     assert abs(v32.item() - v64.item()) / abs(v64.item()) <= 1.02e-5
     assert (torch.linalg.norm(g32.double() - g64) / torch.linalg.norm(g64)).item() <= 5.33e-3
+
+
+def test_derivative_joint_gram_f32_against_f64_launches_k3(dev):
+    """The derivative GP's [1024, 1024] joint gram (256 points with values
+    and gradients, d = 3) built by torch.func on the card in f32, within
+    10× the JAX package's own f32 gap (4.08e-7, relative in norm) of f64;
+    its factorization launches K3 at [1024, 1024]."""
+    from pygpr_torch.models import derivative
+
+    x = torch.tensor(np.random.default_rng(9).uniform(0.0, 2.0, (256, 3)), dtype=torch.float32, device=dev)
+    p = torch.ones(4, device=dev)
+    K32 = derivative.joint_gram(gp.RBF(), p, x, x)
+    K64 = derivative.joint_gram(gp.RBF(), p.double(), x.double(), x.double())
+    assert K32.shape == (1024, 1024)
+    assert (torch.linalg.norm(K32.double() - K64) / torch.linalg.norm(K64)).item() <= 4.08e-6
+    k3 = chol_batched.cholesky_batched_cuda
+    before = k3.shapes[(1, 1024)]
+    g = torch.cos(2.0 * x.sum(-1))[:, None].expand(256, 3)
+    st = derivative.factorize(gp.RBF(), p, x, torch.sin(2.0 * x.sum(-1)), x, g)
+    assert k3.shapes[(1, 1024)] > before and bool(st.ok) and torch.isfinite(st.weights).all()
+
+
+def test_gplvm_nlml_multi_at_1024_launches_k3(dev):
+    """The GPLVM's shared-gram NLML at [1024, 1024] (p = 12) in f32 on the
+    card against f64 on the same inputs, value and gradient; one K3 launch
+    at [1024, 1024] a rung."""
+    from pygpr_torch.models import gplvm
+
+    rng = np.random.default_rng(8)
+    y = torch.tensor(np.tanh(rng.normal(size=(1024, 2)) @ rng.normal(size=(2, 12))), dtype=torch.float32,
+                     device=dev)
+    x0 = torch.tensor(gplvm.pca_init(y.cpu().double().numpy(), 2), dtype=torch.float32, device=dev)
+    p = torch.tensor([1.0, 1.0, 1.0, 0.1], device=dev)
+    k3 = chol_batched.cholesky_batched_cuda
+    before = k3.shapes[(1, 1024)]
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        x = x0.to(dt).requires_grad_(True)
+        v = gplvm.nlml_multi(gp.Sum((gp.RBF(), gp.WhiteNoise())), p.to(dt), x, y.to(dt))
+        (g,) = torch.autograd.grad(v, x)
+        out[dt] = (v.item(), g.double())
+    assert k3.shapes[(1, 1024)] > before
+    (v32, g32), (v64, g64) = out[torch.float32], out[torch.float64]
+    assert abs(v32 - v64) / abs(v64) <= 1e-4
+    assert (torch.linalg.norm(g32 - g64) / torch.linalg.norm(g64)).item() <= 1e-2
+
+
+def test_checkpoint_round_trip_of_cuda_tensors(dev, tmp_path):
+    """CUDA tensors saved to the npz layout come back on the card, in their
+    dtype, bit for bit."""
+    from pygpr_torch.utils import load_checkpoint, save_checkpoint
+
+    tree = {"params": torch.randn(5, device=dev), "state": (torch.randn(3, 3, device=dev, dtype=torch.float64), None)}
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, tree, meta={"iters": 7})
+    like = {"params": torch.zeros(5, device=dev), "state": (torch.zeros(3, 3, device=dev, dtype=torch.float64), None)}
+    got, meta = load_checkpoint(path, like)
+    assert meta == {"iters": 7} and got["state"][1] is None
+    for a, b in ((got["params"], tree["params"]), (got["state"][0], tree["state"][0])):
+        assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_safe_cholesky_sends_a_single_f32_gram_above_1024_to_k2(dev):
+    """The ladder's second rule: a single f32 [4096, 4096] flagship gram
+    goes to K2, one launch at rung 0, and its factor's backward error
+    ‖LLᵀ − K‖/‖K‖ is that of K2's own factor (8.8e-8 on an H100 for this
+    gram); a [1100, 1100] one (unaligned) stays on the library."""
+    x, _, p = _data(4096)
+    K = gram.rbf_noise_gram_cuda(torch.tensor(p, device=dev), torch.tensor(x, device=dev))
+    chol_inverse.cholesky_inverse_cuda.launches = 0
+    res = gp.safe_cholesky(K)
+    torch.cuda.synchronize()
+    assert chol_inverse.cholesky_inverse_cuda.launches == 1 and res.ok.item() == 1.0
+    L, K64 = res.chol.double(), K.double()
+    err = (torch.linalg.matrix_norm(L @ L.T - K64) / torch.linalg.matrix_norm(K64)).item()
+    assert err < 5e-7, err
+    chol_inverse.cholesky_inverse_cuda.launches = 0
+    res = gp.safe_cholesky(K[:1100, :1100].contiguous())
+    assert chol_inverse.cholesky_inverse_cuda.launches == 0 and res.ok.item() == 1.0

@@ -134,3 +134,43 @@ def test_chol_and_tri_inverse_f32_ladder_through_fused_plain(rng):
     assert 1e-5 < jitter < 1e-1
     eye = np.eye(256)
     np.testing.assert_allclose((T.double() @ L.double()).numpy(), eye, atol=5e-3)
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,routed",
+    [
+        ((1152, 1152), torch.float32, True),      # one f32 gram above 1024: K2
+        ((4096, 4096), torch.float32, True),
+        ((1024, 1024), torch.float32, False),     # K3's (the first rule)
+        ((1100, 1100), torch.float32, False),     # unaligned: the library
+        ((2, 1152, 1152), torch.float32, False),  # a stack: K3's
+        ((1, 1152, 1152), torch.float32, False),  # a leading axis: the library
+        ((1152, 1152), torch.float64, False),
+    ],
+)
+def test_ladder_second_routing_rule(shape, dtype, routed):
+    assert tl.fused_kernel_takes(torch.empty(shape, dtype=dtype)) == routed
+
+
+def test_safe_cholesky_f32_above_1024_goes_through_fused_plain(rng, monkeypatch):
+    """A single f32 [1152, 1152] gram, exactly singular (duplicated points,
+    bare RBF) and shifted to a least eigenvalue of −5e-4, takes K2's path
+    (its plain version on the CPU) at every rung it tries, escalates to the
+    JAX package's rung for the same f32 gram (1e-3), and its factor is that
+    of the jittered matrix."""
+    from pygpr_torch.ops import chol_inverse
+
+    calls = []
+    plain = chol_inverse.cholesky_inverse_plain
+    monkeypatch.setattr(chol_inverse, "cholesky_inverse_plain", lambda K: calls.append(K.shape) or plain(K))
+    x = rng.uniform(0, 2, size=(1152, 2))
+    x[576:] = x[:576]
+    p = np.array([1.0, 1.0, 1.0])
+    K = np.asarray(gj.kernel_matrix(gj.RBF(), jnp.asarray(p), jnp.asarray(x)) - 5e-4 * np.eye(1152), np.float32)
+    want = jax.jit(jl.safe_cholesky)(jnp.asarray(K))
+    got = tl.safe_cholesky(torch.tensor(K))
+    assert got.ok.item() == 1.0 and len(calls) > 1 and set(calls) == {(1152, 1152)}
+    np.testing.assert_allclose(got.jitter.item(), float(want.jitter), rtol=1e-6)
+    L = got.chol.double()
+    A = torch.tensor(K, dtype=torch.float64) + got.jitter.item() * torch.eye(1152, dtype=torch.float64)
+    assert torch.linalg.matrix_norm(L @ L.T - A) / torch.linalg.matrix_norm(A) < 1e-6
